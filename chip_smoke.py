@@ -4,14 +4,22 @@
 
 Builds the hand-written CUDA kernels from ``streetunveiler_torch/ops/
 rasterizer/csrc/`` (nvcc, sm_90a), holds each one against its plain
-PyTorch version at the shapes of the full-width render, then drives the
-forward render path — ``measure_duplicate_capacity`` and
-``renderer.render`` — on the 300k-surfel street scene at 1920x1280 and
-checks and times it, by stage with CUDA events and over three frames
-under ``torch.profiler`` (the card's busy and idle share, kernels by
-time). Each phase prints one JSON line; any failure raises
-and the script exits non-zero. The last two lines are the kernels table
-and ``{"ok": true, "device": {...}}``.
+PyTorch version at the shapes of the full-width render and step, then
+drives the two paths of the port on the 300k-surfel street scene at
+1920x1280:
+
+* the forward render — ``measure_duplicate_capacity`` and
+  ``renderer.render`` — checked and timed by stage with CUDA events and
+  over three frames under ``torch.profiler`` (the card's busy and idle
+  share, kernels by time);
+* stage-1 training — ``bin_step`` + ``train_step`` with real Adam updates
+  and densification statistics (phases ``k2_vs_plain``,
+  ``train_main_path``, ``train_time``), then the training CLI on the
+  synthetic street scene for 300 iterations (``train_scene_synthetic``).
+
+Each phase prints one JSON line; any failure raises and the script exits
+non-zero. The last two lines are the kernels table and
+``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device and nvcc (``CUDA_HOME`` or ``/usr/local/cuda``); it
 imports nothing of JAX. Without a CUDA device it exits 2 and prints no
@@ -33,12 +41,27 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 K1_OPS_PER_PAIR = 30
 K3_OPS_PER_SLOT = 10
+# K2 (the count in csrc/blend_bwd.cu's note): ~33 f32 operations for
+# every evaluated pair (the forward recompute), ~82 + 4 per payload
+# channel more for every kept one (the scan, the pair VJP and the sums)
+K2_OPS_EVALUATED, K2_OPS_KEPT_BASE, K2_OPS_KEPT_CHANNEL = 33, 82, 4
+TRAIN_ITER0 = 5000   # the schedule point of the full-width steps: SH
+#                      degree 3 active, densification statistics on
+TRAIN_STEPS = 20
 W, H, FOCAL, N_SURFELS = 1920, 1280, 1000.0, 300_000
 
 # the tolerances of tests/test_kernel.py, per accumulator channel
 TOL_PAYLOAD, TOL_ALPHA, TOL_DEPTH, TOL_MOMENT, TOL_MEDIAN = \
     5e-5, 2e-5, 5e-4, 5e-5, 1e-5
 FLIP_FRACTION = 1e-3     # knife-edge pixels allowed at t_eps > 0
+# K2 against its plain version. Per surfel, after the record scatter: the
+# gradient tolerance of tests/test_kernel.py:86. Per record row (before
+# the scatter), the largest error relative to the row's largest gradient:
+# both versions sum f32 terms that cancel heavily (the pair VJP through
+# the cross products, and the 512-pixel sums in another order), and a
+# float64 emulation of the kernel's arithmetic differs from the plain
+# version by up to 2.6e-4 of a row's maximum on random cotangents.
+GRAD_ATOL_REL, GRAD_RTOL, ROW_TOL_REL = 2e-4, 1e-3, 1e-3
 
 
 def emit(phase, **fields):
@@ -183,6 +206,446 @@ def check_blend(torch, acc, lk, want_acc, want_lk, nq, label):
     return max(errs[:nq + 5] + [dist_err])
 
 
+class capture_blend_backward:
+    """Within the block, ``kernel.blend_backward`` (what the blend's
+    autograd backward calls) records its arguments and, with ``plain``,
+    runs the plain version instead of K2 — so one real loss gives K2's
+    exact inputs, and the same loss backpropagated through the plain
+    version gives the reference gradients."""
+
+    def __init__(self, kernel, plain=False):
+        self.kernel, self.plain, self.args = kernel, plain, None
+
+    def __enter__(self):
+        self.orig = self.kernel.blend_backward
+        fn = self.kernel.blend_backward_plain if self.plain else self.orig
+
+        def record(*a):
+            self.args = a
+            return fn(*a)
+        self.kernel.blend_backward = record
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel.blend_backward = self.orig
+        return False
+
+
+def loss_grads(torch, state, cam, gt, bg, opt, iteration, cap,
+               gt_semantic=None):
+    """stage1_loss of ``state`` and its gradients (the six parameter
+    leaves, then center2d_offset), as ``train_step`` takes them."""
+    import dataclasses
+    from streetunveiler_torch.models.gaussians import SurfelParams
+    from streetunveiler_torch.train.step import stage1_loss
+    names = [f.name for f in dataclasses.fields(SurfelParams)]
+    leaves = {n: getattr(state.params, n).detach().requires_grad_(True)
+              for n in names}
+    off = torch.zeros((state.capacity, 2), device="cuda",
+                      requires_grad=True)
+    st = dataclasses.replace(state, params=SurfelParams(**leaves))
+    loss, aux = stage1_loss(st, cam, gt, bg, iteration, opt,
+                            gt_semantic=gt_semantic, center2d_offset=off,
+                            duplicate_capacity=cap)
+    grads = torch.autograd.grad(loss, [leaves[n] for n in names] + [off])
+    return loss.detach(), dict(zip(names + ["center2d_offset"], grads)), aux
+
+
+def k2_pairs(torch, lk, tile_offsets):
+    """(duplicate, pixel) pairs K2 evaluates: per pixel, its tile's
+    duplicates up to and including its last composited one."""
+    lk64 = lk[..., 0].long()
+    start = tile_offsets.long()[:-1, None]
+    return int(torch.where(lk64 >= 0, lk64 - start + 1,
+                           torch.zeros_like(lk64)).sum())
+
+
+def k2_vs_plain(torch, kernel, state, cam, gt, gt_sem, bg, cap, opt, nq):
+    """K2 against its plain version on the inputs of the step's real loss
+    (every stage-1 loss term on), at full width: per record row, then per
+    surfel after the record scatter."""
+    with capture_blend_backward(kernel) as cap_k2:
+        loss, g_k2, _ = loss_grads(torch, state, cam, gt, bg, opt,
+                                   TRAIN_ITER0, cap,
+                                   gt_sem if nq == 12 else None)
+    with capture_blend_backward(kernel, plain=True):
+        _, g_plain, _ = loss_grads(torch, state, cam, gt, bg, opt,
+                                   TRAIN_ITER0, cap,
+                                   gt_sem if nq == 12 else None)
+    a = cap_k2.args
+    recT, off, _, _, _, acc, lk, dacc, nq_run = a
+    got = kernel.blend_backward_cuda(*a)
+    want, kept = kernel.blend_backward_plain(*a, count_pairs=True)
+    torch.cuda.synchronize()
+    row_scale = want.abs().amax(dim=1)
+    row_err = ((got - want).abs().amax(dim=1)
+               / row_scale.clamp(min=1e-30)).tolist()
+    rows_ok = all(e <= ROW_TOL_REL for e in row_err)
+    surfel = {}
+    for name, gk in g_k2.items():
+        gp = g_plain[name]
+        scale = float(gp.abs().max())
+        ok = bool(torch.allclose(gk, gp, atol=GRAD_ATOL_REL * scale,
+                                 rtol=GRAD_RTOL))
+        surfel[name] = dict(max_abs=scale,
+                            max_abs_err=float((gk - gp).abs().max()),
+                            finite=bool(torch.isfinite(gk).all()),
+                            within_tolerance=ok)
+    pairs = k2_pairs(torch, lk, off)
+    ms = cuda_ms(torch, lambda: kernel.blend_backward_cuda(*a), 20)
+    plain_ms = cuda_ms(torch, lambda: kernel.blend_backward_plain(*a), 1)
+    rec, capp = recT.shape
+    filled = int(off[-1])
+    nbytes = 4 * (rec * filled + off.numel() + acc.numel() + lk.numel()
+                  + dacc.numel() + rec * capp)
+    ops = (K2_OPS_EVALUATED * pairs
+           + (K2_OPS_KEPT_BASE + K2_OPS_KEPT_CHANNEL * nq) * kept)
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = ops / F32_OPS_PER_S * 1e3
+    ok = (nq_run == nq and rows_ok and bool(torch.isfinite(got).all())
+          and all(v["within_tolerance"] and v["finite"]
+                  for v in surfel.values()))
+    emit(f"k2_vs_plain_nq{nq}", nq=nq, record_rows=rec, loss=float(loss),
+         row_max_abs_err_rel=row_err, row_tolerance_rel=ROW_TOL_REL,
+         per_surfel=surfel, grad_tolerance=dict(atol_rel=GRAD_ATOL_REL,
+                                                rtol=GRAD_RTOL),
+         evaluated_pairs=pairs, kept_pairs=kept, duplicates=filled, ms=ms,
+         plain_ms=plain_ms, bytes=nbytes, operations=ops,
+         bound_ms_bytes=bound_bytes, bound_ms_ops=bound_ops,
+         within_tolerance=ok)
+    if not ok:
+        raise AssertionError(f"K2 disagrees with its plain version at "
+                             f"nq={nq}")
+    abs_err = float((got - want).abs().max())
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_bytes,
+                                                       bound_ops),
+                bound_by="operations" if bound_ops >= bound_bytes
+                else "bytes", max_abs_err=abs_err)
+
+
+def finite_state(torch, state, opt_state):
+    import dataclasses
+    tensors = [getattr(t, f.name) for t in (state.params, opt_state.mu,
+                                            opt_state.nu)
+               for f in dataclasses.fields(t)]
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def train_phases(torch, state, cam, cap):
+    """The training slice at full width; returns what the kernels line
+    needs of it."""
+    import dataclasses
+    from streetunveiler_torch import renderer
+    from streetunveiler_torch.config import OptimizationParams
+    from streetunveiler_torch.models.gaussians import (
+        add_densification_stats, densify_and_prune)
+    from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel
+    from streetunveiler_torch.ops.rasterizer.preprocess import \
+        preprocess_surfels
+    from streetunveiler_torch.train.losses import photometric_loss
+    from streetunveiler_torch.train.optim import adam_update
+    from streetunveiler_torch.train.step import (bin_step, init_optimizer,
+                                                 make_lrs, train_step)
+
+    # the ground truth: a render of a perturbed copy (opacity logits
+    # raised by 1.5), its semantic argmax as the label map
+    bg = torch.zeros(3, device="cuda")
+    gt_state = dataclasses.replace(state, params=dataclasses.replace(
+        state.params, opacity=state.params.opacity + 1.5))
+    with torch.no_grad():
+        gt = renderer.render(cam, gt_state, bg, duplicate_capacity=cap,
+                             device="cuda").render.clamp(0.0, 1.0)
+        gt_sem = renderer.render_semantic(cam, gt_state,
+                                          duplicate_capacity=cap,
+                                          device="cuda"
+                                          ).argmax(dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+
+    # ---- K2 against its plain version, nq 6 and 12, every loss term on
+    opt_all = OptimizationParams(normal_consist_from_iter=0,
+                                 semantic_dist_from_iter=0,
+                                 shrinking_from_iter=0)
+    k2 = {nq: k2_vs_plain(torch, kernel, state, cam, gt, gt_sem, bg, cap,
+                          opt_all, nq) for nq in (6, 12)}
+
+    # ---- the training main path: one semantic (nq=12) step, then
+    # TRAIN_STEPS photometric steps, with the schedule's loss at
+    # TRAIN_ITER0, real Adam updates and densification statistics
+    opt = OptimizationParams()
+    opt_state = init_optimizer(state)
+    cuda_lib.reset_launch_counts()
+    losses, overflow = [], False
+    for i in range(TRAIN_STEPS + 1):
+        it = TRAIN_ITER0 + i
+        b = bin_step(state, cam, duplicate_capacity=cap, device="cuda")
+        state, opt_state, m = train_step(
+            state, opt_state, cam, gt, bg, it, opt, duplicate_capacity=cap,
+            binning=b, gt_semantic=gt_sem if i == 0 else None,
+            device="cuda")
+        losses.append(float(m["loss"]))
+        overflow = overflow or bool(m["overflow"])
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launch_counts)
+    steps = TRAIN_STEPS + 1
+    finite = finite_state(torch, state, opt_state)
+    tracked = int((state.denom > 0).sum())
+    falls = losses[-1] < losses[1]
+    ok = (finite and falls and not overflow and tracked > 0
+          and all(launches[k] >= steps
+                  for k in ("expand", "blend_fwd", "blend_bwd")))
+    emit("train_main_path", steps=steps, first_step_nq=12, iteration0=
+         TRAIN_ITER0, losses=losses, loss_falls=falls, overflow=overflow,
+         launches=launches, finite=finite, surfels_with_stats=tracked,
+         semantic_step_loss=losses[0])
+    if not ok:
+        raise AssertionError("the full-width training steps failed their "
+                             "checks")
+
+    # densify and prune at full capacity, with the gradient threshold at
+    # the 90th percentile of the nonzero accumulated screen gradients, so
+    # that thousands of surfels want to clone or split: nothing can be
+    # placed, so no split parent may be pruned
+    n_alive = int(state.num_alive)
+    grads = state.grad_accum / state.denom.clamp(min=1)
+    threshold = float(torch.quantile(grads[grads > 0], 0.9))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    d_state, mu, nu = densify_and_prune(
+        state, opt_state.mu, opt_state.nu, threshold, opt.opacity_cull,
+        None, generator=gen, percent_dense=opt.percent_dense)
+    high = int((grads >= threshold).sum())
+    d_ok = (int(d_state.num_alive) == n_alive == state.capacity
+            and high > 0
+            and finite_state(torch, d_state, opt_state._replace(mu=mu,
+                                                                nu=nu)))
+    emit("densify_full_capacity", capacity=state.capacity,
+         alive_before=n_alive, alive_after=int(d_state.num_alive),
+         grad_threshold=threshold, high_gradient=high, finite=d_ok)
+    if not d_ok:
+        raise AssertionError("densify_and_prune at full capacity changed "
+                             "the surfel count or went non-finite")
+
+    # ---- the step's time: host clock between synchronisations
+    counter = [TRAIN_ITER0 + steps]
+
+    def step(gt_semantic=None):
+        nonlocal state, opt_state
+        b = bin_step(state, cam, duplicate_capacity=cap, device="cuda")
+        state, opt_state, _ = train_step(
+            state, opt_state, cam, gt, bg, counter[0], opt,
+            duplicate_capacity=cap, binning=b, gt_semantic=gt_semantic,
+            device="cuda")
+        counter[0] += 1
+
+    def host_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = host_ms(step, 12)
+    step_ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the semantic step (nq=12), one warm-up, then 5
+    step(gt_sem)
+    sem_times = host_ms(lambda: step(gt_sem), 5)
+
+    # stages, each alone on the inputs of one step (CUDA events)
+    it = TRAIN_ITER0 + steps + 20
+    loss, g, aux = loss_grads(torch, state, cam, gt, bg, opt, it, cap)
+    b = bin_step(state, cam, duplicate_capacity=cap, device="cuda")
+    names = list(g)[:-1]
+
+    def forward():
+        leaves = {n: getattr(state.params, n).detach().requires_grad_(True)
+                  for n in names}
+        st = dataclasses.replace(state, params=type(state.params)(**leaves))
+        return renderer.render(cam, st, bg, active_sh_degree=3,
+                               duplicate_capacity=cap, binning=b,
+                               device="cuda", center2d_offset=torch.zeros(
+                                   (state.capacity, 2), device="cuda",
+                                   requires_grad=True))
+
+    img = aux["image"].clone().requires_grad_(True)
+
+    def losses_fwd_bwd():
+        return torch.autograd.grad(
+            photometric_loss(img, gt, opt.lambda_dssim), img)
+
+    with capture_blend_backward(kernel) as cb:
+        loss_grads(torch, state, cam, gt, bg, opt, it, cap)
+    a = cb.args
+    drecT = kernel.blend_backward_cuda(*a)
+    idx = b.sorted_surfel
+    n_cols = state.capacity + 1
+
+    def record_scatter():
+        # what autograd runs for _gather_records' index_select backward
+        return torch.zeros((drecT.shape[0], n_cols),
+                           device="cuda").index_add_(1, idx, drecT)
+
+    # the preprocess and SH decode as the render builds them, up to the
+    # packed records; its backward alone on a retained graph, fed the
+    # scattered record gradients of the captured K2 call
+    leaves = {n: getattr(state.params, n).detach().requires_grad_(True)
+              for n in names}
+    off2d = torch.zeros((state.capacity, 2), device="cuda",
+                        requires_grad=True)
+    st = dataclasses.replace(state, params=type(state.params)(**leaves))
+    sur = preprocess_surfels(
+        st.params.xyz, st.get_scaling(), st.get_rotation(),
+        st.get_opacity()[:, 0], renderer.surfel_colors(st, cam, 3), cam.w2c,
+        cam.K, renderer._settings_for(cam, 1.0), center2d_offset=off2d)
+    packT = kernel.pack_geometry_T(sur, state.capacity)
+    dpackT = record_scatter()
+    bwd_inputs = list(leaves.values()) + [off2d]
+
+    def preprocess_sh_backward():
+        return torch.autograd.grad(packT, bwd_inputs, dpackT,
+                                   retain_graph=True, allow_unused=True)
+    p_copy = type(state.params)(**{n: getattr(state.params, n).clone()
+                                   for n in names})
+    o_copy = init_optimizer(state)
+    lrs = make_lrs(opt, it, state.spatial_scale)
+    g_params = type(state.params)(**{n: g[n] for n in names})
+    visible = aux["radii"] > 0
+    stage = dict(
+        binning=cuda_ms(torch, lambda: bin_step(
+            state, cam, duplicate_capacity=cap, device="cuda"), 10),
+        forward_render=cuda_ms(torch, forward, 10),
+        losses_fwd_bwd=cuda_ms(torch, losses_fwd_bwd, 10),
+        k2=cuda_ms(torch, lambda: kernel.blend_backward_cuda(*a), 10),
+        record_scatter=cuda_ms(torch, record_scatter, 10),
+        preprocess_sh_backward=cuda_ms(torch, preprocess_sh_backward, 10),
+        adam=cuda_ms(torch, lambda: adam_update(g_params, o_copy, p_copy,
+                                                lrs), 10),
+        densification_stats=cuda_ms(torch, lambda: add_densification_stats(
+            state, g["center2d_offset"], aux["radii"], visible), 10))
+    full = cuda_ms(torch, lambda: loss_grads(torch, state, cam, gt, bg, opt,
+                                             it, cap), 5)
+    emit("train_time", step_ms_median=step_ms, step_ms_all=times,
+         rays_per_s=W * H / (step_ms / 1e3),
+         semantic_step_ms_median=statistics.median(sem_times),
+         semantic_step_ms_all=sem_times, stages_ms=stage,
+         loss_and_grads_ms=full, stages_sum_ms=sum(stage.values()),
+         peak_mem_gib=peak, iteration=it,
+         note="step = bin_step + train_step; loss_and_grads = binning, "
+              "stage1_loss and its gradients; each stage alone in CUDA "
+              "events; the backward of the image assembly and "
+              "finalize_render is not timed alone")
+    emit("train_profile", **profile_frames(torch, step, 3))
+    return k2, launches
+
+
+def bench_fwd_bwd(torch, state, cam, iters=10):
+    """The fwd+bwd time of ``bench.py:155-159``'s loss on the same scene:
+    binning, then the gradient of Σ(color − 0)² + 0.01·Σ distortion +
+    0.01·Σ normal² through ``rasterize`` at the default capacity, with a
+    data dependence from step to step; mean over ``iters`` after warm-up."""
+    from streetunveiler_torch import renderer
+    from streetunveiler_torch.ops.rasterizer import rasterize
+    from streetunveiler_torch.ops.rasterizer.api import (
+        bin_for_camera, default_duplicate_capacity)
+    settings = renderer._settings_for(cam, 1.0)
+    args = [state.params.xyz.detach().clone(), state.get_scaling().detach(),
+            state.get_rotation().detach(), state.get_opacity()[:, 0].detach(),
+            torch.rand((state.capacity, 3), device="cuda",
+                       generator=torch.Generator(device="cuda")
+                       .manual_seed(0))]
+    dup_cap = default_duplicate_capacity(state.capacity, W, H)
+    bg = torch.zeros(3, device="cuda")
+
+    def one(m):
+        b = bin_for_camera(m, *args[1:4], cam.w2c, cam.K, settings,
+                           duplicate_capacity=dup_cap)
+        m = m.detach().requires_grad_(True)
+        out = rasterize(m, *args[1:], cam.w2c, cam.K, settings, bg=bg,
+                        duplicate_capacity=dup_cap, binning=b)
+        loss = ((out.color ** 2).sum() + 0.01 * out.distortion.sum()
+                + 0.01 * (out.normal ** 2).sum())
+        (gm,) = torch.autograd.grad(loss, m)
+        return (m + 1e-12 * gm).detach(), bool(out.overflow)
+
+    m = args[0]
+    for _ in range(2):
+        m, _ = one(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        m, ovf = one(m)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    emit("bench_fwd_bwd", definition="bench.py:155-159: binning + "
+         "gradient of sum(color^2) + 0.01 sum(distortion) + 0.01 "
+         "sum(normal^2) through rasterize, default capacity",
+         ms_per_iter=dt * 1e3, rays_per_s=W * H / dt, iters=iters,
+         overflow=ovf, capacity=dup_cap)
+
+
+def train_scene_synthetic(torch):
+    """The training CLI on the synthetic street scene at its defaults
+    (4,000 points, 12 cameras, 160x112, every 8th view held out) for 300
+    iterations with densification from iteration 100 at a gradient
+    threshold of 5e-5 (at the default 2e-4 no surfel of this scene clones
+    or splits in 300 iterations); held-out PSNR before and after, the
+    surfel count growing, and the checkpoint read back."""
+    import dataclasses
+    from streetunveiler_torch.cli import train as cli_train
+    from streetunveiler_torch.cli.common import scene_background
+    from streetunveiler_torch.config import ModelParams
+    from streetunveiler_torch.cli.common import load_scene_info
+    from streetunveiler_torch.scene.scene import Scene
+    from streetunveiler_torch.train.checkpoint import load_checkpoint
+    from streetunveiler_torch.train.loop import evaluate_views
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+
+    iters = 300
+    scene = Scene(load_scene_info(ModelParams(eval=True), seed=0,
+                                  device="cuda"), device="cuda")
+    state0 = scene.create_state()
+    bg = scene_background(scene, device="cuda")
+    p0, _ = evaluate_views(state0, scene.test_cameras, scene.test_images, bg)
+    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        state, reports = cli_train.main([
+            "--model_path", tmp, "--iterations", str(iters), "--eval",
+            "--log_every", "100", "--eval_every", "300", "--save_every",
+            str(iters), "--densify_from_iter", "100",
+            "--densify_grad_threshold", "5e-5", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ck, _, it = load_checkpoint(os.path.join(
+            tmp, "checkpoint", f"iteration_{iters}"), device="cuda")
+        same = all(torch.equal(getattr(ck.params, f.name),
+                               getattr(state.params, f.name))
+                   for f in dataclasses.fields(ck.params)) and torch.equal(
+                       ck.alive, state.alive)
+        ply = os.path.exists(os.path.join(tmp, "point_cloud",
+                                          f"iteration_{iters}",
+                                          "point_cloud.ply"))
+    p1 = reports[-1].test_psnr
+    grew = max(r.n_alive for r in reports) > int(state0.num_alive)
+    ok = same and ply and it == iters and p1 >= p0 + 1.0 and grew
+    emit("train_scene_synthetic", iterations=iters, test_psnr_before=p0,
+         test_psnr_after=p1, train_psnr=[r.psnr for r in reports],
+         n_alive=[r.n_alive for r in reports],
+         init_alive=int(state0.num_alive), densified=grew, wall_s=wall,
+         checkpoint_roundtrip=same, ply_written=ply)
+    if not ok:
+        raise AssertionError("training on the synthetic street did not "
+                             "raise held-out PSNR by 1 dB, did not "
+                             "densify, or its checkpoint did not read "
+                             "back")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -288,7 +751,8 @@ def main():
          alpha_max=alpha_max, alpha_mean=float(res.rend_alpha.mean()),
          shapes_ok=shapes_ok)
     if not (all(finite.values()) and shapes_ok and alpha_max > 0.5
-            and not overflow and all(v > 0 for v in launches.values())):
+            and not overflow
+            and all(launches[k] > 0 for k in ("expand", "blend_fwd"))):
         raise AssertionError("the full-width render failed its checks")
 
     # stage inputs of that render, for the kernel comparisons and timings
@@ -413,12 +877,17 @@ def main():
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     emit("profile", **profile_frames(torch, frame, 3))
 
-    # ---- 6. kernels
+    # ---- 7. the training slice at full width, then the training CLI
+    k2, train_launches = train_phases(torch, state, cam, cap)
+    bench_fwd_bwd(torch, state, cam)
+    train_scene_synthetic(torch)
+
+    # ---- 8. kernels; launches are those of the training main path
     kernels = [
         dict(name="K3 tile expansion", route="cuda",
              source="streetunveiler_torch/ops/rasterizer/csrc/expand.cu",
              replaces="streetunveiler_tpu/ops/rasterizer/tiles.py:160",
-             launches=launches["expand"], max_abs_err=0.0, ms=k3_ms,
+             launches=train_launches["expand"], max_abs_err=0.0, ms=k3_ms,
              plain_ms=k3_plain_ms, bound_ms=k3_bound, bound_by="bytes"
              if k3_bytes / HBM_BYTES_PER_S
              >= K3_OPS_PER_SLOT * capp / F32_OPS_PER_S else "operations",
@@ -426,10 +895,19 @@ def main():
         dict(name="K1 blend forward", route="cuda",
              source="streetunveiler_torch/ops/rasterizer/csrc/blend_fwd.cu",
              replaces="streetunveiler_tpu/ops/rasterizer/kernel.py:217",
-             launches=launches["blend_fwd"], max_abs_err=k1_err, ms=k1_ms,
-             plain_ms=k1_plain_ms, bound_ms=max(k1_bound_bytes, k1_bound_ops),
+             launches=train_launches["blend_fwd"], max_abs_err=k1_err,
+             ms=k1_ms, plain_ms=k1_plain_ms,
+             bound_ms=max(k1_bound_bytes, k1_bound_ops),
              bound_by="operations" if k1_bound_ops >= k1_bound_bytes
              else "bytes", library_ms=None),
+        dict(name="K2 blend backward", route="cuda",
+             source="streetunveiler_torch/ops/rasterizer/csrc/blend_bwd.cu",
+             replaces="streetunveiler_tpu/ops/rasterizer/kernel.py:406",
+             launches=train_launches["blend_bwd"],
+             max_abs_err=max(k2[6]["max_abs_err"], k2[12]["max_abs_err"]),
+             ms=k2[6]["ms"], plain_ms=k2[6]["plain_ms"],
+             bound_ms=k2[6]["bound_ms"], bound_by=k2[6]["bound_by"],
+             library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
-"""Public rasterization API: the tiled forward render (counterpart of
-``streetunveiler_tpu/ops/rasterizer/api.py``).
+"""Public rasterization API: the tiled, differentiable render
+(counterpart of ``streetunveiler_tpu/ops/rasterizer/api.py``).
 
 ``rasterize`` = ``preprocess_surfels`` → ``bin_surfels_stream`` (duplicate
-expansion: kernel K3) → ``_gather_records`` → ``blend_stream`` (kernel K1)
-→ image assembly. Colors are precomputed by the caller; the static
-capacity ``duplicate_capacity`` replaces dynamic allocation, and overflow
-is reported, not hidden.
+expansion: kernel K3) → ``_gather_records`` → ``blend_stream`` (kernel K1
+forward, kernel K2 backward) → image assembly. The backward runs K2, then
+the record-grad scatter (autograd's ``index_select`` backward), then
+autograd through the preprocess; the binning is gradient-free. Colors are
+precomputed by the caller; the static capacity ``duplicate_capacity``
+replaces dynamic allocation, and overflow is reported, not hidden.
 """
 
 from __future__ import annotations
@@ -53,7 +55,13 @@ def bin_for_camera(means3d, scales, quats, opacities, w2c, K,
 def _gather_records(packT, idx):
     """Lane-axis take: packT [rec, N+1] → the records of the stream's
     duplicates in stream order, [rec, cap], contiguous (the layout the
-    blend kernel loads coalesced)."""
+    blend kernels load coalesced). Its backward, the record-grad scatter,
+    is autograd's for ``index_select``: a library ``index_add_`` along the
+    columns, as the JAX package leaves this scatter-add to XLA. Pad slots
+    reference column N (the zero record); it takes their gradients and
+    ``pack_geometry_T``'s backward drops it. On a card the scatter adds
+    with atomics, so the sums' order, and their last bits, vary from run
+    to run."""
     return packT.index_select(1, idx).contiguous()
 
 
@@ -116,7 +124,7 @@ def rasterize(means3d, scales, quats, opacities, colors, w2c, K,
               duplicate_capacity: int | None = None,
               center2d_offset=None, extra_payload=None, class_gates=None,
               binning=None) -> RenderOutput:
-    """Tiled 2DGS render on the device of the inputs (forward).
+    """Differentiable tiled 2DGS render on the device of the inputs.
 
     Same semantics as ``rasterize_oracle``; activated scales/opacities,
     ``colors`` [N, 3]. ``extra_payload`` [N, E] blends E more per-surfel

@@ -28,26 +28,26 @@
 // suffix-count matmuls were matrix-unit workarounds and have no
 // counterpart). The block stops as soon as all 512 pixels are done
 // (__syncthreads_count). Simple first: no TMA, no warp specialisation.
-// The pair math runs in the plain version's order and is built with
-// -fmad=false (cuda_lib.py), so each pair's alpha and depth round as they
-// do there.
+// The pair math (pair_math.cuh, shared with K2) runs in the plain
+// version's order and is built with -fmad=false (cuda_lib.py), so each
+// pair's alpha and depth round as they do there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pair_math.cuh"
+
 namespace {
+
+using su_pair::kGeo;
+using su_pair::kQRow0;
 
 constexpr int kTileW = 32;
 constexpr int kTileH = 16;
 constexpr int kPix = kTileW * kTileH;
 constexpr int kBatch = 256;      // duplicates staged per round
-constexpr int kQRow0 = 10;       // first payload row of a record
 constexpr int kMaxQ = 16;        // payload channels a launch may carry
-constexpr int kGeo = 14;         // ax..cz, det, c2dx, c2dy, depth, opacity
-constexpr float kAlphaEps = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
 constexpr float kMedianT = 0.5f;
-constexpr float kFilterInvSquare = 2.0f;
 
 __global__ void __launch_bounds__(kPix)
 blend_fwd_kernel(const float* __restrict__ recT, int cap, int nq,
@@ -80,52 +80,18 @@ blend_fwd_kernel(const float* __restrict__ recT, int cap, int nq,
     if (p < nb) {
       const float* r = recT + base + p;
       const size_t ld = (size_t)cap;
-      const float r1x = r[0 * ld], r2x = r[1 * ld], r3x = r[2 * ld];
-      const float r1y = r[3 * ld], r2y = r[4 * ld], r3y = r[5 * ld];
-      const float c2dx = r[6 * ld], c2dy = r[7 * ld];
-      const float z = r[8 * ld], opac = r[9 * ld];
-      const float r1z = c2dx * z, r2z = c2dy * z, r3z = z;
-      const float ax = r1y * r2z - r1z * r2y;
-      const float ay = r1z * r2x - r1x * r2z;
-      const float az = r1x * r2y - r1y * r2x;
-      sm[0 * kBatch + p] = ax;
-      sm[1 * kBatch + p] = ay;
-      sm[2 * kBatch + p] = az;
-      sm[3 * kBatch + p] = r2y * r3z - r2z * r3y;
-      sm[4 * kBatch + p] = r2z * r3x - r2x * r3z;
-      sm[5 * kBatch + p] = r2x * r3y - r2y * r3x;
-      sm[6 * kBatch + p] = r3y * r1z - r3z * r1y;
-      sm[7 * kBatch + p] = r3z * r1x - r3x * r1z;
-      sm[8 * kBatch + p] = r3x * r1y - r3y * r1x;
-      sm[9 * kBatch + p] = r3x * ax + r3y * ay + r3z * az;
-      sm[10 * kBatch + p] = c2dx;
-      sm[11 * kBatch + p] = c2dy;
-      sm[12 * kBatch + p] = z;
-      sm[13 * kBatch + p] = opac;
+      su_pair::stage_geometry(r, ld, sm, kBatch, p);
       for (int k = 0; k < nq; ++k)
         sm[(kGeo + k) * kBatch + p] = r[(size_t)(kQRow0 + k) * ld];
     }
     __syncthreads();
     if (done) continue;
     for (int j = 0; j < nb; ++j) {
-      const float opac = sm[13 * kBatch + j];
-      const float kx = sm[0 * kBatch + j] + px * sm[3 * kBatch + j] +
-                       py * sm[6 * kBatch + j];
-      const float ky = sm[1 * kBatch + j] + px * sm[4 * kBatch + j] +
-                       py * sm[7 * kBatch + j];
-      const float kz = sm[2 * kBatch + j] + px * sm[5 * kBatch + j] +
-                       py * sm[8 * kBatch + j];
-      const float kzs = fabsf(kz) < 1e-12f ? 1e-12f : kz;
-      const float rcp = 1.0f / kzs;
-      const float rho3d = (kx * kx + ky * ky) * (rcp * rcp);
-      const float dx = px - sm[10 * kBatch + j];
-      const float dy = py - sm[11 * kBatch + j];
-      const float rho2d = kFilterInvSquare * (dx * dx + dy * dy);
-      const bool use2d = rho3d > rho2d;
-      const float rho = use2d ? rho2d : rho3d;
-      const float t = use2d ? sm[12 * kBatch + j] : sm[9 * kBatch + j] * rcp;
-      const float a = fminf(kAlphaMax, opac * expf(-0.5f * rho));
-      if (!(a >= kAlphaEps && t >= znear && opac > 0.0f)) continue;
+      const su_pair::Pair e =
+          su_pair::eval_pair(sm, kBatch, j, px, py, znear);
+      if (!e.contrib) continue;
+      const float a = e.a;
+      const float t = e.t;
       const float t_after = T * (1.0f - a);
       if (t_after < t_eps) {
         done = true;

@@ -13,10 +13,12 @@ nq alpha, nq+1 expected-depth accumulator, nq+2 spare (zero; the
 distortion α·m2 − m1² is computed by the caller), nq+3 m1 (Σωm), nq+4 m2
 (Σωm²), nq+5 median depth.
 
-``blend_stream`` is the entry: on a CUDA tensor it launches the CUDA
-kernel ``csrc/blend_fwd.cu`` (or raises), on a CPU tensor it runs
-``blend_forward_plain``. It is an ``autograd.Function`` whose backward —
-kernel K2 — lands with the training slice.
+``blend_stream`` is the entry: an ``autograd.Function`` whose forward
+launches kernel K1 (``csrc/blend_fwd.cu``) on a CUDA tensor and runs
+``blend_forward_plain`` on a CPU tensor, and whose backward launches
+kernel K2 (``csrc/blend_bwd.cu``) or runs ``blend_backward_plain`` the
+same way. On a CUDA tensor a kernel that fails to build or launch raises;
+nothing falls back to the plain versions.
 """
 
 from __future__ import annotations
@@ -193,22 +195,7 @@ def blend_forward_cuda(recT, tile_offsets, tiles_x: int, tiles_y: int,
     """Launch kernel K1 (``csrc/blend_fwd.cu``) on the current stream."""
     n_tiles = tiles_x * tiles_y
     dev = recT.device
-    if dev.type != "cuda" or tile_offsets.device != dev:
-        raise ValueError("blend_forward_cuda needs recT and tile_offsets "
-                         "on one CUDA device")
-    if recT.dtype != torch.float32 or tile_offsets.dtype != torch.int32:
-        raise TypeError("recT must be float32 and tile_offsets int32")
-    if recT.dim() != 2 or recT.shape[0] < Q_ROW0 + nq:
-        raise ValueError(f"recT must be [>= {Q_ROW0 + nq}, cap], "
-                         f"got {tuple(recT.shape)}")
-    if tile_offsets.shape != (n_tiles + 1,):
-        raise ValueError(f"tile_offsets must be [{n_tiles + 1}], "
-                         f"got {tuple(tile_offsets.shape)}")
-    if not (recT.is_contiguous() and tile_offsets.is_contiguous()):
-        raise ValueError("recT and tile_offsets must be contiguous")
-    if not 1 <= nq <= MAX_NQ:
-        raise ValueError(f"the CUDA blend carries 1..{MAX_NQ} payload "
-                         f"channels, got {nq}")
+    _check_blend_args("blend_forward_cuda", recT, tile_offsets, n_tiles, nq)
     lib = cuda_lib.load_library()
     acc = torch.empty((n_tiles, PIX, ch_for(nq)), dtype=torch.float32,
                       device=dev)
@@ -236,19 +223,193 @@ def blend_forward(recT, tile_offsets, tiles_x: int, tiles_y: int,
                               settings, nq)
 
 
+def blend_backward_plain(recT, tile_offsets, tiles_x: int, tiles_y: int,
+                         settings: RasterizeSettings, acc, lk, dacc,
+                         nq: int = NQ, tile_batch: int = 64,
+                         count_pairs: bool = False):
+    """Plain PyTorch version of kernel K2, the blend backward, vectorized
+    over batches of ``tile_batch`` tiles.
+
+    Each tile's duplicates are walked back to front in chunks of S_CHUNK,
+    from the deepest one any of its pixels kept (``lk``), with a carried
+    suffix transmittance U (from 1 − α_final) and suffix Σ w·Ω. Per kept
+    pair (α > 0, index ≤ lk): T_excl = U/Π_{kept i≥j}(1−α_i),
+    w = α·T_excl, Ω = gq·q + gα + g_depth·t + g_m1·m + g_m2·m²,
+    dα = T_excl·Ω − S_{>j}/(1−α), dt = w·(g_depth + (g_m1 + 2m·g_m2)·dm/dt);
+    the pair VJP onto record rows 0-9 is ``torch.autograd.grad`` of
+    ``pair_alpha_depth`` with cotangents (dα, dt), and the payload rows get
+    dq = Σ_p gq·w.
+
+    recT [rec, cap], tile_offsets [T+1] int32, acc/dacc [T, PIX, nq+6],
+    lk [T, PIX, 1] int32 → drecT [rec, cap] f32: per-duplicate record
+    gradients in stream order (zero outside every tile's range and in the
+    rows past Q_ROW0 + nq); with ``count_pairs`` also the number of kept
+    (duplicate, pixel) pairs, those that pass the α and depth gates at or
+    before the pixel's ``lk``.
+    """
+    dev = recT.device
+    n_tiles = tiles_x * tiles_y
+    znear, zfar = settings.znear, settings.zfar
+    dmdt_num = zfar * znear / (zfar - znear)
+    drecT = torch.zeros(recT.shape, dtype=torch.float32, device=dev)
+    kept = torch.zeros((), dtype=torch.int64, device=dev)
+    off = tile_offsets.to(torch.int64)
+    counts = off[1:] - off[:-1]
+    lk64 = lk[..., 0].to(torch.int64)                        # [T, PIX]
+    # duplicates each tile walks: up to the deepest one a pixel kept
+    depth = torch.where(lk64 >= 0, lk64 - off[:-1, None] + 1,
+                        torch.zeros_like(lk64)).amax(dim=1)
+    depth_host = depth.cpu()
+    sub = torch.arange(PIX, device=dev)
+    sub_x = (sub % TILE_W).to(torch.float32)
+    sub_y = (sub // TILE_W).to(torch.float32)
+    lane = torch.arange(S_CHUNK, device=dev)
+    recT, acc, dacc = recT.detach(), acc.detach(), dacc.detach()
+
+    for t0 in range(0, n_tiles, tile_batch):
+        t1 = min(t0 + tile_batch, n_tiles)
+        length = int(depth_host[t0:t1].max())
+        if length == 0:
+            continue
+        tb = torch.arange(t0, t1, device=dev)
+        ty = tb // tiles_x
+        tx = tb - ty * tiles_x
+        px = ((tx * TILE_W).to(torch.float32)[:, None] + sub_x + 0.5)[:, None]
+        py = ((ty * TILE_H).to(torch.float32)[:, None] + sub_y + 0.5)[:, None]
+        d = dacc[t0:t1]                                      # [Tb, P, ch]
+        gq = d[..., :nq]
+        g_alpha, g_depth = d[:, None, :, nq], d[:, None, :, nq + 1]
+        g_m1, g_m2 = d[:, None, :, nq + 3], d[:, None, :, nq + 4]
+        lk_b = lk64[t0:t1, None, :]                          # [Tb, 1, P]
+        u = 1.0 - acc[t0:t1, :, nq]                          # [Tb, P]
+        s = torch.zeros_like(u)
+
+        for c0 in reversed(range(0, length, S_CHUNK)):
+            j = c0 + lane                                    # [S]
+            inr = j[None, :] < counts[t0:t1, None]           # [Tb, S]
+            gidx = torch.where(inr, off[t0:t1, None] + j[None, :], 0)
+            geo = recT[:Q_ROW0, gidx][..., None].requires_grad_(True)
+            q = recT[Q_ROW0:Q_ROW0 + nq, gidx]               # [nq, Tb, S]
+            with torch.enable_grad():
+                opac = torch.where(inr[..., None], geo[9],
+                                   torch.zeros_like(geo[9]))
+                c2dx, c2dy, z = geo[6], geo[7], geo[8]
+                m_rows = (geo[0], geo[3], c2dx * z, geo[1], geo[4],
+                          c2dy * z, geo[2], geo[5], z)
+                a, tdep = pair_alpha_depth(m_rows, (c2dx, c2dy), z, opac,
+                                           opac > 0.0, px, py, znear)
+            ad, td = a.detach(), tdep.detach()               # [Tb, S, P]
+            keep = (ad > 0.0) & (gidx[..., None] <= lk_b)
+            if count_pairs:
+                kept = kept + keep.sum()
+            f = torch.where(keep, 1.0 - ad, torch.ones_like(ad))
+            suffix = torch.flip(torch.cumprod(torch.flip(f, [1]), dim=1),
+                                [1])
+            t_excl = u[:, None, :] / suffix
+            w = torch.where(keep, ad * t_excl, torch.zeros_like(ad))
+            m = map_depth(td, znear, zfar)
+            dmdt = dmdt_num / torch.clamp(td * td, min=1e-12)
+            gqq = sum(q[k][..., None] * gq[:, None, :, k] for k in range(nq))
+            omega = (gqq + g_alpha + g_depth * td + g_m1 * m
+                     + g_m2 * m * m)
+            womega = w * omega
+            s_incl = torch.flip(torch.cumsum(torch.flip(womega, [1]), dim=1),
+                                [1])
+            s_after = s[:, None, :] + s_incl - womega         # strict suffix
+            da = torch.where(keep, t_excl * omega - s_after / (1.0 - ad),
+                             torch.zeros_like(ad))
+            dt = w * (g_depth + (g_m1 + 2.0 * m * g_m2) * dmdt)
+            u = u / suffix[:, 0, :]
+            s = s + s_incl[:, 0, :]
+
+            (dgeo,) = torch.autograd.grad((a, tdep), geo, (da, dt))
+            dq = torch.stack([(gq[:, None, :, k] * w).sum(-1)
+                              for k in range(nq)])           # [nq, Tb, S]
+            contrib = torch.cat([dgeo[..., 0], dq], dim=0)
+            drecT[:Q_ROW0 + nq, gidx[inr]] = contrib[:, inr]
+    if count_pairs:
+        return drecT, int(kept)
+    return drecT
+
+
+def _check_blend_args(name, recT, tile_offsets, n_tiles, nq, tensors=()):
+    dev = recT.device
+    if dev.type != "cuda" or any(t.device != dev
+                                 for t in (tile_offsets, *tensors)):
+        raise ValueError(f"{name} needs every tensor on one CUDA device")
+    if recT.dtype != torch.float32 or tile_offsets.dtype != torch.int32:
+        raise TypeError("recT must be float32 and tile_offsets int32")
+    if recT.dim() != 2 or recT.shape[0] < Q_ROW0 + nq:
+        raise ValueError(f"recT must be [>= {Q_ROW0 + nq}, cap], "
+                         f"got {tuple(recT.shape)}")
+    if tile_offsets.shape != (n_tiles + 1,):
+        raise ValueError(f"tile_offsets must be [{n_tiles + 1}], "
+                         f"got {tuple(tile_offsets.shape)}")
+    if not all(t.is_contiguous() for t in (recT, tile_offsets, *tensors)):
+        raise ValueError(f"{name} needs contiguous tensors")
+    if not 1 <= nq <= MAX_NQ:
+        raise ValueError(f"the CUDA blend carries 1..{MAX_NQ} payload "
+                         f"channels, got {nq}")
+
+
+def blend_backward_cuda(recT, tile_offsets, tiles_x: int, tiles_y: int,
+                        settings: RasterizeSettings, acc, lk, dacc,
+                        nq: int = NQ):
+    """Launch kernel K2 (``csrc/blend_bwd.cu``) on the current stream."""
+    n_tiles = tiles_x * tiles_y
+    _check_blend_args("blend_backward_cuda", recT, tile_offsets, n_tiles, nq,
+                      (acc, lk, dacc))
+    ch = ch_for(nq)
+    if (acc.shape != (n_tiles, PIX, ch) or dacc.shape != acc.shape
+            or lk.shape != (n_tiles, PIX, 1)):
+        raise ValueError(f"acc/dacc must be [{n_tiles}, {PIX}, {ch}] and lk "
+                         f"[{n_tiles}, {PIX}, 1]")
+    if (acc.dtype != torch.float32 or dacc.dtype != torch.float32
+            or lk.dtype != torch.int32):
+        raise TypeError("acc and dacc must be float32 and lk int32")
+    lib = cuda_lib.load_library()
+    dev = recT.device
+    dgrad = torch.zeros(recT.shape, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.su_blend_bwd(
+        recT.data_ptr(), recT.shape[0], recT.shape[1], nq,
+        tile_offsets.data_ptr(), n_tiles, tiles_x,
+        ctypes.c_float(settings.znear), ctypes.c_float(settings.zfar),
+        acc.data_ptr(), lk.data_ptr(), dacc.data_ptr(), dgrad.data_ptr(),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        stream)
+    cuda_lib.check(rc, "blend_bwd launch")
+    cuda_lib.launch_counts["blend_bwd"] += 1
+    return dgrad
+
+
+def blend_backward(recT, tile_offsets, tiles_x: int, tiles_y: int,
+                   settings: RasterizeSettings, acc, lk, dacc, nq: int = NQ):
+    """K2 on a CUDA tensor, its plain version on a CPU tensor."""
+    if recT.device.type == "cpu":
+        return blend_backward_plain(recT, tile_offsets, tiles_x, tiles_y,
+                                    settings, acc, lk, dacc, nq)
+    return blend_backward_cuda(recT, tile_offsets, tiles_x, tiles_y,
+                               settings, acc, lk, dacc, nq)
+
+
 class _BlendStream(torch.autograd.Function):
     @staticmethod
     def forward(ctx, recT, tile_offsets, tiles_x, tiles_y, settings, nq):
         acc, lk = blend_forward(recT, tile_offsets, tiles_x, tiles_y,
                                 settings, nq)
         ctx.mark_non_differentiable(lk)
+        ctx.save_for_backward(recT, tile_offsets, acc, lk)
+        ctx.blend = (tiles_x, tiles_y, settings, nq)
         return acc, lk
 
     @staticmethod
     def backward(ctx, dacc, dlk):
-        raise NotImplementedError(
-            "the blend backward (kernel K2, the TPU `_bwd_kernel`) is not "
-            "ported yet: it lands with the training slice")
+        recT, tile_offsets, acc, lk = ctx.saved_tensors
+        tiles_x, tiles_y, settings, nq = ctx.blend
+        drecT = blend_backward(recT, tile_offsets, tiles_x, tiles_y,
+                               settings, acc, lk, dacc.contiguous(), nq)
+        return drecT, None, None, None, None, None
 
 
 def blend_stream(recT, tile_offsets, tiles_x: int, tiles_y: int,
@@ -260,7 +421,8 @@ def blend_stream(recT, tile_offsets, tiles_x: int, tiles_y: int,
     (``api._gather_records``); tile_offsets [T+1] int32 from
     ``tiles.bin_surfels_stream``. Returns (acc [T, PIX, nq+6],
     lk [T, PIX, 1] int32). Every tile is written, empty ones as zeros
-    with lk −1.
+    with lk −1. Differentiable in ``recT``: the backward returns the
+    per-duplicate record gradients [rec, cap] (kernel K2).
     """
     if n_gates:
         raise NotImplementedError(

@@ -1,5 +1,6 @@
 """Untiled plain-torch 2DGS renderer — the correctness oracle, forward
-only (counterpart of ``streetunveiler_tpu/ops/rasterizer/oracle.py``).
+and, through autograd, backward (counterpart of
+``streetunveiler_tpu/ops/rasterizer/oracle.py``).
 
 Every surfel against every pixel block, depth-sorted globally and scanned
 front to back in chunks with a carried transmittance. It knows nothing of
@@ -62,17 +63,17 @@ def _blend_block(px, py, sur, settings, chunk_surfels):
         best = torch.max(torch.where(cand, idx, torch.full_like(idx, -1)),
                          dim=0).values
         t_best = torch.gather(t, 0, torch.clamp(best, min=0)[None, :])[0]
-        med = torch.where(best >= 0, t_best, med)
+        med = torch.where(best >= 0, t_best.detach(), med)
     return t_carry, color, depth_a, normal_a, dist, a_sum, med
 
 
-@torch.no_grad()
 def rasterize_oracle(means3d, scales, quats, opacities, colors, w2c, K,
                      settings: RasterizeSettings, bg=None,
                      chunk_surfels: int = 256, pixel_block: int = 4096,
                      center2d_offset=None) -> RenderOutput:
     """Render; ``scales``/``opacities`` pre-activated, ``colors`` [N, C],
-    ``bg`` [C] composited behind the splats."""
+    ``bg`` [C] composited behind the splats. Differentiable (the median
+    depth under stop-gradient, as in the tiled path)."""
     h, w_img = settings.height, settings.width
     dev = means3d.device
     sur = preprocess_surfels(means3d, scales, quats, opacities, colors,

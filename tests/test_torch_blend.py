@@ -239,14 +239,16 @@ def test_empty_tiles_are_zero():
 
 
 def test_refusals(scene):
+    """Gated chains and a non-RGB colour width are refused; the backward
+    (K2's plain version here) runs and reaches the colours."""
     targs, tw2c, tK, tst = to_torch(scene)
     gates = torch.ones((targs[0].shape[0], 2), dtype=torch.bool)
     with pytest.raises(NotImplementedError):
         rasterize(*targs, tw2c, tK, tst, class_gates=gates)
     cols = targs[4].clone().requires_grad_(True)
     out = rasterize(*targs[:4], cols, tw2c, tK, tst)
-    with pytest.raises(NotImplementedError, match="K2"):
-        out.color.sum().backward()
+    out.color.sum().backward()
+    assert torch.isfinite(cols.grad).all() and cols.grad.abs().max() > 0
     with pytest.raises(ValueError):
         rasterize(*targs[:4], torch.zeros((targs[0].shape[0], 4)), tw2c, tK,
                   tst)

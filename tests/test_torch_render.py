@@ -180,7 +180,8 @@ def test_cpu_render_launches_no_kernel(port_state, cameras):
     _, tc = cameras
     cuda_lib.reset_launch_counts()
     renderer.render(tc, port_state, np.zeros(3, np.float32), device="cpu")
-    assert cuda_lib.launch_counts == {"blend_fwd": 0, "expand": 0}
+    assert cuda_lib.launch_counts == {"blend_fwd": 0, "blend_bwd": 0,
+                                      "expand": 0}
 
 
 GUARD = r"""
@@ -194,19 +195,34 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
                                             "streetunveiler_tpu")))
 assert not bad, bad
-assert len(names) >= 20, names
+assert len(names) >= 30, names
+for mod in ("train.step", "train.loop", "train.losses", "train.optim",
+            "train.schedule", "train.checkpoint", "cli.train", "cli.common",
+            "scene.scene", "scene.readers.synthetic", "scene.readers.basic",
+            "config", "utils.semantics", "utils.logging"):
+    assert "streetunveiler_torch." + mod in names, mod
 import torch
 if not torch.cuda.is_available():
+    import tempfile
     import numpy as np
     from streetunveiler_torch import renderer
+    from streetunveiler_torch.cli import train as cli_train
+    from streetunveiler_torch.config import OptimizationParams
     from streetunveiler_torch.models.gaussians import create_from_pcd
     from streetunveiler_torch.scene.cameras import Camera
+    from streetunveiler_torch.train.step import init_optimizer, train_step
     st = create_from_pcd(np.random.default_rng(0).normal(size=(16, 3)),
                          np.zeros((16, 3)), np.zeros(16), 1.0, device="cpu")
     cam = Camera(w2c=torch.eye(4), K=torch.eye(3), width=32, height=16)
+    tmp = tempfile.mkdtemp()
     for call in (lambda: renderer.render(cam, st, np.zeros(3)),
                  lambda: create_from_pcd(np.zeros((4, 3)), np.zeros((4, 3)),
-                                         np.zeros(4), 1.0)):
+                                         np.zeros(4), 1.0),
+                 lambda: train_step(st, init_optimizer(st), cam,
+                                    torch.zeros(16, 32, 3), np.zeros(3), 1,
+                                    OptimizationParams()),
+                 lambda: cli_train.main(["--model_path", tmp,
+                                         "--iterations", "1"])):
         try:
             call()
         except RuntimeError as e:
