@@ -15,7 +15,13 @@ drives the two paths of the port on the 300k-surfel street scene at
 * stage-1 training — ``bin_step`` + ``train_step`` with real Adam updates
   and densification statistics (phases ``k2_vs_plain``,
   ``train_main_path``, ``train_time``), then the training CLI on the
-  synthetic street scene for 300 iterations (``train_scene_synthetic``).
+  synthetic street scene for 300 iterations (``train_scene_synthetic``);
+* the late-phase step — semantics, the gated per-class distortion (G = 5
+  gated chains in K1 and K2) and the sky trained jointly (phases
+  ``reference_small_gated``, ``k1_vs_plain_gated_*``,
+  ``k2_vs_plain_gated_*``, ``train_late_path``, ``train_late_time``,
+  ``train_late_profile``), then the CLI with ``--semantics --sky``
+  through a compressed schedule (``train_scene_synthetic_late``).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last two lines are the kernels table and
@@ -41,13 +47,19 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 K1_OPS_PER_PAIR = 30
 K3_OPS_PER_SLOT = 10
-# K2 (the count in csrc/blend_bwd.cu's note): ~33 f32 operations for
-# every evaluated pair (the forward recompute), ~82 + 4 per payload
-# channel more for every kept one (the scan, the pair VJP and the sums)
-K2_OPS_EVALUATED, K2_OPS_KEPT_BASE, K2_OPS_KEPT_CHANNEL = 33, 82, 4
+# K2 (the count in csrc/blend_bwd.cuh's note): ~33 f32 operations for
+# every evaluated pair (the forward recompute); ~20 + 4 per payload
+# channel for each pair the main chain kept (its scan), ~20 for each pair
+# a gated chain kept (that chain's scan), and ~62 for each pair some chain
+# kept (the pair VJP and the 14 sums): 82 + 4·nq per kept pair ungated
+K2_OPS_EVALUATED, K2_OPS_SCAN, K2_OPS_KEPT_CHANNEL, K2_OPS_VJP = 33, 20, 4, 62
+K1_OPS_GATED_KEPT = 8   # a gated chain's composite: T, w, α_g, m1_g, m2_g
 TRAIN_ITER0 = 5000   # the schedule point of the full-width steps: SH
 #                      degree 3 active, densification statistics on
 TRAIN_STEPS = 20
+LATE_ITER0 = 31_001  # the late phase: past semantic_dist_from_iter,
+#                      normal_consist_from_iter and shrinking_from_iter
+G_LATE = 5           # gated chains of the late loss: every class but sky
 W, H, FOCAL, N_SURFELS = 1920, 1280, 1000.0, 300_000
 
 # the tolerances of tests/test_kernel.py, per accumulator channel
@@ -179,12 +191,18 @@ def profile_frames(torch, frame, frames):
                      for name, (ms, n) in top])
 
 
-def check_blend(torch, acc, lk, want_acc, want_lk, nq, label):
+def check_blend(torch, acc, lk, want_acc, want_lk, nq, label, n_gates=0,
+                **fields):
     """K1 against its plain version: lk mismatch fraction, and per channel
-    the max abs error over the pixels whose lk agrees."""
+    the max abs error over the pixels whose lk agrees; with gated chains
+    the same per class over the pixels whose lk_g agrees (α_g, m1_g, m2_g
+    and the class's distortion α_g·m2_g − m1_g²). Returns the largest
+    error of a checked channel."""
+    ch = nq + 6
     same = (lk == want_lk)[..., 0]
     mismatch = 1.0 - float(same.float().mean())
-    errs = (acc - want_acc).abs()[same].amax(dim=0).tolist()
+    errs = (acc[..., :ch] - want_acc[..., :ch]).abs()[same].amax(
+        dim=0).tolist()
     alpha_c = nq
     dist = lambda a: a[..., alpha_c] * a[..., nq + 4] - a[..., nq + 3] ** 2
     dist_err = float((dist(acc) - dist(want_acc)).abs()[same].max())
@@ -197,13 +215,34 @@ def check_blend(torch, acc, lk, want_acc, want_lk, nq, label):
     ok = (mismatch <= FLIP_FRACTION and dist_err <= TOL_MOMENT
           and med_far <= FLIP_FRACTION and med_rel <= 1e-5
           and all(e <= t for e, t in zip(errs, tol)))
-    emit(label, nq=nq, lk_mismatch_frac=mismatch,
+    worst = max(errs[:nq + 5] + [dist_err])
+    gated = []
+    for g in range(n_gates):
+        c0 = ch + 4 * g
+        same_g = acc[..., c0 + 3] == want_acc[..., c0 + 3]
+        mism_g = 1.0 - float(same_g.float().mean())
+        errs_g = (acc[..., c0:c0 + 3] - want_acc[..., c0:c0 + 3]).abs()[
+            same_g].amax(dim=0).tolist()
+        dist_g = lambda a: a[..., c0] * a[..., c0 + 2] - a[..., c0 + 1] ** 2
+        dist_g_err = float((dist_g(acc) - dist_g(want_acc)).abs()[
+            same_g].max())
+        ok_g = (mism_g <= FLIP_FRACTION and dist_g_err <= TOL_MOMENT
+                and all(e <= t for e, t in zip(
+                    errs_g, (TOL_ALPHA, TOL_MOMENT, TOL_MOMENT))))
+        gated.append(dict(lk_g_mismatch_frac=mism_g,
+                          max_abs_err_alpha_m1_m2=errs_g,
+                          distortion_max_abs_err=dist_g_err,
+                          alpha_g_max=float(want_acc[..., c0].max()),
+                          within_tolerance=ok_g))
+        ok = ok and ok_g
+        worst = max([worst, dist_g_err] + errs_g)
+    emit(label, nq=nq, n_gates=n_gates, lk_mismatch_frac=mismatch,
          max_abs_err_per_channel=errs, distortion_max_abs_err=dist_err,
          median_frac_over_tol=med_far, median_max_rel_err=med_rel,
-         within_tolerance=ok)
+         gated=gated, **fields, within_tolerance=ok)
     if not ok:
         raise AssertionError(f"{label}: K1 disagrees with its plain version")
-    return max(errs[:nq + 5] + [dist_err])
+    return worst
 
 
 class capture_blend_backward:
@@ -232,9 +271,10 @@ class capture_blend_backward:
 
 
 def loss_grads(torch, state, cam, gt, bg, opt, iteration, cap,
-               gt_semantic=None):
+               gt_semantic=None, class_dist=False, sky=None):
     """stage1_loss of ``state`` and its gradients (the six parameter
-    leaves, then center2d_offset), as ``train_step`` takes them."""
+    leaves, then center2d_offset, then the sky's tensors as ``sky.…``),
+    as ``train_step`` takes them."""
     import dataclasses
     from streetunveiler_torch.models.gaussians import SurfelParams
     from streetunveiler_torch.train.step import stage1_loss
@@ -244,38 +284,47 @@ def loss_grads(torch, state, cam, gt, bg, opt, iteration, cap,
     off = torch.zeros((state.capacity, 2), device="cuda",
                       requires_grad=True)
     st = dataclasses.replace(state, params=SurfelParams(**leaves))
+    sky_leaves = None if sky is None else sky.map(
+        lambda t: t.detach().requires_grad_(True))
     loss, aux = stage1_loss(st, cam, gt, bg, iteration, opt,
-                            gt_semantic=gt_semantic, center2d_offset=off,
+                            sky_params=sky_leaves, gt_semantic=gt_semantic,
+                            class_dist=class_dist, center2d_offset=off,
                             duplicate_capacity=cap)
-    grads = torch.autograd.grad(loss, [leaves[n] for n in names] + [off])
-    return loss.detach(), dict(zip(names + ["center2d_offset"], grads)), aux
+    inputs = dict(zip(names, (leaves[n] for n in names)))
+    inputs["center2d_offset"] = off
+    if sky_leaves is not None:
+        inputs.update({"sky" + k: t
+                       for k, t in sky_leaves.named_tensors().items()})
+    grads = torch.autograd.grad(loss, list(inputs.values()))
+    return loss.detach(), dict(zip(inputs, grads)), aux
 
 
-def k2_pairs(torch, lk, tile_offsets):
-    """(duplicate, pixel) pairs K2 evaluates: per pixel, its tile's
-    duplicates up to and including its last composited one."""
-    lk64 = lk[..., 0].long()
-    start = tile_offsets.long()[:-1, None]
-    return int(torch.where(lk64 >= 0, lk64 - start + 1,
-                           torch.zeros_like(lk64)).sum())
+def k2_ops(counts, nq):
+    """K2's f32 operations on one call's data (csrc/blend_bwd.cuh's note):
+    the recompute of every evaluated pair, the main chain's scan of each
+    pair it kept, a gated chain's scan of each pair it kept, and the pair
+    VJP with the 14 sums of each pair some chain kept."""
+    return (K2_OPS_EVALUATED * counts["evaluated"]
+            + (K2_OPS_SCAN + K2_OPS_KEPT_CHANNEL * nq) * counts["kept"]
+            + K2_OPS_SCAN * counts["gated_kept"]
+            + K2_OPS_VJP * counts["any_kept"])
 
 
-def k2_vs_plain(torch, kernel, state, cam, gt, gt_sem, bg, cap, opt, nq):
-    """K2 against its plain version on the inputs of the step's real loss
-    (every stage-1 loss term on), at full width: per record row, then per
-    surfel after the record scatter."""
-    with capture_blend_backward(kernel) as cap_k2:
-        loss, g_k2, _ = loss_grads(torch, state, cam, gt, bg, opt,
-                                   TRAIN_ITER0, cap,
-                                   gt_sem if nq == 12 else None)
-    with capture_blend_backward(kernel, plain=True):
-        _, g_plain, _ = loss_grads(torch, state, cam, gt, bg, opt,
-                                   TRAIN_ITER0, cap,
-                                   gt_sem if nq == 12 else None)
-    a = cap_k2.args
-    recT, off, _, _, _, acc, lk, dacc, nq_run = a
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over the f32 rate."""
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return max(b_ms, o_ms), "operations" if o_ms >= b_ms else "bytes"
+
+
+def check_k2(torch, kernel, a, g_k2, g_plain, label, reps=20, **fields):
+    """K2 against its plain version on the captured arguments ``a`` of a
+    real loss's backward: per record row, then per surfel (the loss's
+    gradients through K2 against those through the plain version, after
+    the record scatter). Times both and bounds K2 on these inputs."""
+    recT, off, _, _, _, _, lk, _, nq, n_gates = a
     got = kernel.blend_backward_cuda(*a)
-    want, kept = kernel.blend_backward_plain(*a, count_pairs=True)
+    want, counts = kernel.blend_backward_plain(*a, count_pairs=True)
     torch.cuda.synchronize()
     row_scale = want.abs().amax(dim=1)
     row_err = ((got - want).abs().amax(dim=1)
@@ -291,64 +340,155 @@ def k2_vs_plain(torch, kernel, state, cam, gt, gt_sem, bg, cap, opt, nq):
                             max_abs_err=float((gk - gp).abs().max()),
                             finite=bool(torch.isfinite(gk).all()),
                             within_tolerance=ok)
-    pairs = k2_pairs(torch, lk, off)
-    ms = cuda_ms(torch, lambda: kernel.blend_backward_cuda(*a), 20)
+    ms = cuda_ms(torch, lambda: kernel.blend_backward_cuda(*a), reps)
     plain_ms = cuda_ms(torch, lambda: kernel.blend_backward_plain(*a), 1)
     rec, capp = recT.shape
     filled = int(off[-1])
-    nbytes = 4 * (rec * filled + off.numel() + acc.numel() + lk.numel()
-                  + dacc.numel() + rec * capp)
-    ops = (K2_OPS_EVALUATED * pairs
-           + (K2_OPS_KEPT_BASE + K2_OPS_KEPT_CHANNEL * nq) * kept)
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = ops / F32_OPS_PER_S * 1e3
-    ok = (nq_run == nq and rows_ok and bool(torch.isfinite(got).all())
+    # what K2 reads (csrc/blend_bwd.cuh) and writes: record rows 0..9+nq
+    # and the gate row of each filled slot; of acc, α and each (α_g, lk_g);
+    # of dacc, the payload, α, depth, m1 and m2 cotangents and each
+    # (α_g, m1_g, m2_g); lk; all of dgrad
+    pix = lk.numel()
+    nbytes = 4 * ((kernel.Q_ROW0 + nq + (1 if n_gates else 0)) * filled
+                  + off.numel() + pix * (1 + 2 * n_gates) + pix
+                  + pix * (nq + 4 + 3 * n_gates) + rec * capp)
+    ops = k2_ops(counts, nq)
+    bound_ms, bound_by = bound(nbytes, ops)
+    ok = (rows_ok and bool(torch.isfinite(got).all())
           and all(v["within_tolerance"] and v["finite"]
                   for v in surfel.values()))
-    emit(f"k2_vs_plain_nq{nq}", nq=nq, record_rows=rec, loss=float(loss),
+    emit(label, nq=nq, n_gates=n_gates, record_rows=rec,
          row_max_abs_err_rel=row_err, row_tolerance_rel=ROW_TOL_REL,
          per_surfel=surfel, grad_tolerance=dict(atol_rel=GRAD_ATOL_REL,
                                                 rtol=GRAD_RTOL),
-         evaluated_pairs=pairs, kept_pairs=kept, duplicates=filled, ms=ms,
+         evaluated_pairs=counts["evaluated"], kept_pairs=counts["kept"],
+         gated_kept_pairs=counts["gated_kept"],
+         vjp_pairs=counts["any_kept"], duplicates=filled, ms=ms,
          plain_ms=plain_ms, bytes=nbytes, operations=ops,
-         bound_ms_bytes=bound_bytes, bound_ms_ops=bound_ops,
+         bound_ms_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
+         bound_ms_ops=ops / F32_OPS_PER_S * 1e3, **fields,
          within_tolerance=ok)
     if not ok:
-        raise AssertionError(f"K2 disagrees with its plain version at "
-                             f"nq={nq}")
-    abs_err = float((got - want).abs().max())
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bound_bytes,
-                                                       bound_ops),
-                bound_by="operations" if bound_ops >= bound_bytes
-                else "bytes", max_abs_err=abs_err)
+        raise AssertionError(f"{label}: K2 disagrees with its plain version")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, counts=counts,
+                max_abs_err=float((got - want).abs().max()))
 
 
-def finite_state(torch, state, opt_state):
+def k2_vs_plain(torch, kernel, state, cam, gt, gt_sem, bg, cap, opt, nq):
+    """K2 against its plain version on the inputs of the step's real loss
+    (every stage-1 loss term on), at full width: per record row, then per
+    surfel after the record scatter."""
+    sem = gt_sem if nq == 12 else None
+    with capture_blend_backward(kernel) as cap_k2:
+        loss, g_k2, _ = loss_grads(torch, state, cam, gt, bg, opt,
+                                   TRAIN_ITER0, cap, sem)
+    with capture_blend_backward(kernel, plain=True):
+        _, g_plain, _ = loss_grads(torch, state, cam, gt, bg, opt,
+                                   TRAIN_ITER0, cap, sem)
+    a = tuple(t.detach() if torch.is_tensor(t) else t for t in cap_k2.args)
+    if a[8] != nq:
+        raise AssertionError(f"the loss ran the blend at nq={a[8]}, "
+                             f"not {nq}")
+    return check_k2(torch, kernel, a, g_k2, g_plain, f"k2_vs_plain_nq{nq}",
+                    loss=float(loss))
+
+
+def gated_vs_plain(torch, kernel, loss_fn, case):
+    """Gated K1 and K2 against their plain versions on one loss's blend:
+    ``loss_fn()`` → (loss, grads) runs the loss and its gradients; it runs
+    twice, its backward through K2, then through the plain version. K1's
+    inputs are the forward's records (the captured arguments)."""
+    with capture_blend_backward(kernel) as cb:
+        loss, g_k2 = loss_fn()
+    with capture_blend_backward(kernel, plain=True):
+        _, g_plain = loss_fn()
+    # the captured records require grad: detached, the plain versions
+    # below build no graph
+    a = tuple(t.detach() if torch.is_tensor(t) else t for t in cb.args)
+    recT, off, tx, ty, settings, _, _, _, nq, n_gates = a
+    k1_args = (recT, off, tx, ty, settings, nq, n_gates)
+    acc, lk = kernel.blend_forward_cuda(*k1_args)
+    want_acc, want_lk, counts = kernel.blend_forward_plain(
+        *k1_args, count_pairs=True)
+    # the pairs the ungated blend of the same records evaluates
+    main_evaluated = kernel.blend_forward_plain(
+        *k1_args[:6], count_pairs=True)[2]["evaluated"]
+    torch.cuda.synchronize()
+    ms = cuda_ms(torch, lambda: kernel.blend_forward_cuda(*k1_args), 10)
+    plain_ms = cuda_ms(torch, lambda: kernel.blend_forward_plain(*k1_args),
+                       1)
+    nbytes = 4 * (recT.shape[0] * int(off[-1]) + off.numel() + acc.numel()
+                  + lk.numel())
+    ops = (K1_OPS_PER_PAIR * counts["evaluated"]
+           + K1_OPS_GATED_KEPT * counts["gated_kept"])
+    k1_bound, k1_by = bound(nbytes, ops)
+    k1_err = check_blend(
+        torch, acc, lk, want_acc, want_lk, nq, f"k1_vs_plain_gated_{case}",
+        n_gates, evaluated_pairs=counts["evaluated"],
+        ungated_evaluated_pairs=main_evaluated,
+        kept_pairs=counts["kept"], gated_kept_pairs=counts["gated_kept"],
+        duplicates=int(off[-1]), ms=ms, plain_ms=plain_ms, bytes=nbytes,
+        operations=ops, bound_ms=k1_bound)
+    k2 = check_k2(torch, kernel, a, g_k2, g_plain,
+                  f"k2_vs_plain_gated_{case}", reps=10, loss=float(loss))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=k1_bound, bound_by=k1_by,
+                max_abs_err=k1_err, counts=counts,
+                ungated_evaluated=main_evaluated), k2, a
+
+
+def dense_gated_loss(torch, rasterize, settings_cls):
+    """A dense-occlusion stack (tests/test_torch_blend.py's dense scene:
+    1500 mostly opaque surfels, 128×96) whose nearest third is class 0 and
+    the rest classes 1 and 2 at random, so that the gated chains of
+    classes 1 and 2 outlive the main chain; loss = Σ colour² + Σ
+    distortion + Σ class_dist over the three classes."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    n, w, h, f = 1500, 128, 96, 110.0
+    z = rng.uniform(2.0, 30.0, n)
+    means = np.stack([rng.uniform(-2.5, 2.5, n), rng.uniform(-2, 2, n), z],
+                     1)
+    cls = np.where(z < np.quantile(z, 1 / 3), 0, rng.integers(1, 3, n))
+    cuda = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                     device="cuda")
+    args = [cuda(means), cuda(rng.uniform(0.2, 0.9, (n, 2))),
+            cuda(rng.normal(size=(n, 4))), cuda(rng.uniform(0.5, 0.98, n)),
+            cuda(rng.uniform(0, 1, (n, 3)))]
+    gates = torch.as_tensor(np.stack([cls == g for g in range(3)], 1),
+                            device="cuda")
+    K = cuda([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]])
+    st = settings_cls(width=w, height=h)
+
+    def loss_fn():
+        leaves = [t.clone().requires_grad_(True) for t in args[:4]]
+        out = rasterize(*leaves, args[4], cuda(np.eye(4)), K, st,
+                        class_gates=gates)
+        loss = ((out.color ** 2).sum() + out.distortion.sum()
+                + out.class_dist.sum())
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), dict(zip(("means", "scales", "quats",
+                                        "opacities"), grads))
+    return loss_fn
+
+
+def finite_state(torch, state, opt_state, sky=None, sky_opt=None):
     import dataclasses
     tensors = [getattr(t, f.name) for t in (state.params, opt_state.mu,
                                             opt_state.nu)
                for f in dataclasses.fields(t)]
+    for t in (sky, *(() if sky_opt is None else (sky_opt.mu, sky_opt.nu))):
+        if t is not None:
+            tensors += list(t.named_tensors().values())
     return all(bool(torch.isfinite(t).all()) for t in tensors)
 
 
-def train_phases(torch, state, cam, cap):
-    """The training slice at full width; returns what the kernels line
-    needs of it."""
+def ground_truth(torch, state, cam, cap):
+    """The training target: a render of a perturbed copy (opacity logits
+    raised by 1.5) on a black background, and its semantic argmax as the
+    label map."""
     import dataclasses
     from streetunveiler_torch import renderer
-    from streetunveiler_torch.config import OptimizationParams
-    from streetunveiler_torch.models.gaussians import (
-        add_densification_stats, densify_and_prune)
-    from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel
-    from streetunveiler_torch.ops.rasterizer.preprocess import \
-        preprocess_surfels
-    from streetunveiler_torch.train.losses import photometric_loss
-    from streetunveiler_torch.train.optim import adam_update
-    from streetunveiler_torch.train.step import (bin_step, init_optimizer,
-                                                 make_lrs, train_step)
-
-    # the ground truth: a render of a perturbed copy (opacity logits
-    # raised by 1.5), its semantic argmax as the label map
     bg = torch.zeros(3, device="cuda")
     gt_state = dataclasses.replace(state, params=dataclasses.replace(
         state.params, opacity=state.params.opacity + 1.5))
@@ -360,6 +500,149 @@ def train_phases(torch, state, cam, cap):
                                           device="cuda"
                                           ).argmax(dim=-1).to(torch.int32)
     torch.cuda.synchronize()
+    return bg, gt, gt_sem
+
+
+def host_ms(torch, fn, reps):
+    """Host-clock milliseconds of ``fn``, each call between
+    synchronisations."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def step_stages(torch, state, cam, cap, bg, gt, opt, it, gt_sem=None,
+                class_dist=False, sky=None):
+    """The stages of one step, each alone on the inputs of the step (CUDA
+    events), and the loss with its gradients in one call. Returns (stages,
+    loss_and_grads_ms)."""
+    import dataclasses
+    import torch.nn.functional as F
+    from streetunveiler_torch import renderer
+    from streetunveiler_torch.models.gaussians import add_densification_stats
+    from streetunveiler_torch.models.sky import render_sky
+    from streetunveiler_torch.ops.rasterizer import kernel
+    from streetunveiler_torch.ops.rasterizer.api import encode_extra
+    from streetunveiler_torch.ops.rasterizer.preprocess import \
+        preprocess_surfels
+    from streetunveiler_torch.train.losses import photometric_loss
+    from streetunveiler_torch.train.optim import adam_init, adam_update
+    from streetunveiler_torch.train.step import (DIST_CLASSES, SKY_EPS,
+                                                 SKY_LR, bin_step,
+                                                 init_optimizer, make_lrs)
+    with capture_blend_backward(kernel) as cb:
+        _, g, aux = loss_grads(torch, state, cam, gt, bg, opt, it, cap,
+                               gt_sem, class_dist, sky)
+    a = tuple(t.detach() if torch.is_tensor(t) else t for t in cb.args)
+    b = bin_step(state, cam, duplicate_capacity=cap, device="cuda")
+    names = [f.name for f in dataclasses.fields(state.params)]
+    extra = (None if gt_sem is None else F.one_hot(
+        state.semantics.long(), 6).to(torch.float32))
+    gates = (torch.stack([renderer.semantic_class_mask(state, 1 << ci)
+                          for ci in DIST_CLASSES], dim=1)
+             if class_dist else None)
+
+    def forward():
+        leaves = {n: getattr(state.params, n).detach().requires_grad_(True)
+                  for n in names}
+        st = dataclasses.replace(state, params=type(state.params)(**leaves))
+        return renderer.render(cam, st, bg, active_sh_degree=3,
+                               duplicate_capacity=cap, binning=b,
+                               extra_payload=extra, class_gates=gates,
+                               device="cuda", center2d_offset=torch.zeros(
+                                   (state.capacity, 2), device="cuda",
+                                   requires_grad=True))
+
+    img = aux["image"].clone().requires_grad_(True)
+
+    def losses_fwd_bwd():
+        return torch.autograd.grad(
+            photometric_loss(img, gt, opt.lambda_dssim), img)
+
+    recT, off, tx, ty, settings, _, _, _, nq, n_gates = a
+    k1_args = (recT, off, tx, ty, settings, nq, n_gates)
+    drecT = kernel.blend_backward_cuda(*a)
+    idx = b.sorted_surfel
+    n_cols = state.capacity + 1
+
+    def record_scatter():
+        # what autograd runs for _gather_records' index_select backward
+        return torch.zeros((drecT.shape[0], n_cols),
+                           device="cuda").index_add_(1, idx, drecT)
+
+    # the preprocess and SH decode as the render builds them, up to the
+    # packed records; its backward alone on a retained graph, fed the
+    # scattered record gradients of the captured K2 call
+    leaves = {n: getattr(state.params, n).detach().requires_grad_(True)
+              for n in names}
+    off2d = torch.zeros((state.capacity, 2), device="cuda",
+                        requires_grad=True)
+    st = dataclasses.replace(state, params=type(state.params)(**leaves))
+    sur = preprocess_surfels(
+        st.params.xyz, st.get_scaling(), st.get_rotation(),
+        st.get_opacity()[:, 0], renderer.surfel_colors(st, cam, 3), cam.w2c,
+        cam.K, renderer._settings_for(cam, 1.0), center2d_offset=off2d)
+    packT = kernel.pack_geometry_T(sur, state.capacity,
+                                   encode_extra(extra, gates)[0])
+    dpackT = record_scatter()
+    bwd_inputs = list(leaves.values()) + [off2d]
+
+    def preprocess_sh_backward():
+        return torch.autograd.grad(packT, bwd_inputs, dpackT,
+                                   retain_graph=True, allow_unused=True)
+    p_copy = type(state.params)(**{n: getattr(state.params, n).clone()
+                                   for n in names})
+    o_copy = init_optimizer(state)
+    lrs = make_lrs(opt, it, state.spatial_scale)
+    g_params = type(state.params)(**{n: g[n] for n in names})
+    visible = aux["radii"] > 0
+    stage = dict(
+        binning=cuda_ms(torch, lambda: bin_step(
+            state, cam, duplicate_capacity=cap, device="cuda"), 10),
+        forward_render=cuda_ms(torch, forward, 10),
+        k1=cuda_ms(torch, lambda: kernel.blend_forward_cuda(*k1_args), 10),
+        losses_fwd_bwd=cuda_ms(torch, losses_fwd_bwd, 10),
+        k2=cuda_ms(torch, lambda: kernel.blend_backward_cuda(*a), 10),
+        record_scatter=cuda_ms(torch, record_scatter, 10),
+        preprocess_sh_backward=cuda_ms(torch, preprocess_sh_backward, 10),
+        adam=cuda_ms(torch, lambda: adam_update(g_params, o_copy, p_copy,
+                                                lrs), 10),
+        densification_stats=cuda_ms(torch, lambda: add_densification_stats(
+            state, g["center2d_offset"], aux["radii"], visible), 10))
+    if sky is not None:
+        c2w = torch.linalg.inv(cam.w2c)
+
+        def sky_fwd_bwd():
+            s = sky.map(lambda t: t.detach().requires_grad_(True))
+            out = render_sky(s, cam.height, cam.width, cam.K, c2w)
+            return torch.autograd.grad(out, list(
+                s.named_tensors().values()), torch.ones_like(out))
+        s_copy = sky.map(torch.clone)
+        s_opt = adam_init(s_copy)
+        it_g = iter([g["sky" + k] for k in sky.named_tensors()])
+        s_grads = sky.map(lambda _: next(it_g))
+        stage["sky_fwd_bwd"] = cuda_ms(torch, sky_fwd_bwd, 10)
+        stage["sky_adam"] = cuda_ms(torch, lambda: adam_update(
+            s_grads, s_opt, s_copy, SKY_LR, eps=SKY_EPS), 10)
+    full = cuda_ms(torch, lambda: loss_grads(torch, state, cam, gt, bg, opt,
+                                             it, cap, gt_sem, class_dist,
+                                             sky), 5)
+    return stage, full
+
+
+def train_phases(torch, state, cam, cap, bg, gt, gt_sem):
+    """The training slice at full width; returns what the kernels line
+    needs of it."""
+    from streetunveiler_torch.config import OptimizationParams
+    from streetunveiler_torch.models.gaussians import densify_and_prune
+    from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel
+    from streetunveiler_torch.train.step import (bin_step, init_optimizer,
+                                                 train_step)
 
     # ---- K2 against its plain version, nq 6 and 12, every loss term on
     opt_all = OptimizationParams(normal_consist_from_iter=0,
@@ -378,7 +661,7 @@ def train_phases(torch, state, cam, cap):
     for i in range(TRAIN_STEPS + 1):
         it = TRAIN_ITER0 + i
         b = bin_step(state, cam, duplicate_capacity=cap, device="cuda")
-        state, opt_state, m = train_step(
+        state, opt_state, _, _, m = train_step(
             state, opt_state, cam, gt, bg, it, opt, duplicate_capacity=cap,
             binning=b, gt_semantic=gt_sem if i == 0 else None,
             device="cuda")
@@ -431,118 +714,139 @@ def train_phases(torch, state, cam, cap):
     def step(gt_semantic=None):
         nonlocal state, opt_state
         b = bin_step(state, cam, duplicate_capacity=cap, device="cuda")
-        state, opt_state, _ = train_step(
+        state, opt_state, _, _, _ = train_step(
             state, opt_state, cam, gt, bg, counter[0], opt,
             duplicate_capacity=cap, binning=b, gt_semantic=gt_semantic,
             device="cuda")
         counter[0] += 1
 
-    def host_ms(fn, reps):
-        out = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return out
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = host_ms(torch, step, 12)
+    step_ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the semantic step (nq=12), one warm-up, then 5
+    step(gt_sem)
+    sem_times = host_ms(torch, lambda: step(gt_sem), 5)
+
+    it = TRAIN_ITER0 + steps + 20
+    stage, full = step_stages(torch, state, cam, cap, bg, gt, opt, it)
+    emit("train_time", step_ms_median=step_ms, step_ms_all=times,
+         rays_per_s=W * H / (step_ms / 1e3),
+         semantic_step_ms_median=statistics.median(sem_times),
+         semantic_step_ms_all=sem_times, stages_ms=stage,
+         loss_and_grads_ms=full,
+         stages_sum_ms=sum(v for k, v in stage.items() if k != "k1"),
+         peak_mem_gib=peak, iteration=it,
+         note="step = bin_step + train_step; loss_and_grads = binning, "
+              "stage1_loss and its gradients; each stage alone in CUDA "
+              "events; k1 is inside forward_render and left out of the "
+              "sum; the backward of the image assembly and "
+              "finalize_render is not timed alone")
+    emit("train_profile", **profile_frames(torch, step, 3))
+    return k2, launches
+
+
+def late_phases(torch, state, cam, cap, bg, gt, gt_sem):
+    """The late-phase step at full width: gated K1/K2 against their plain
+    versions (the late loss, and a dense-occlusion stack), then
+    TRAIN_STEPS + 1 late steps with the sky, their time by stage and
+    their profile. Returns what the kernels line needs of it."""
+    from streetunveiler_torch.config import OptimizationParams
+    from streetunveiler_torch.models.sky import init_sky
+    from streetunveiler_torch.ops.rasterizer import (RasterizeSettings,
+                                                     cuda_lib, kernel,
+                                                     rasterize)
+    from streetunveiler_torch.train.step import (bin_step, init_optimizer,
+                                                 train_step)
+    opt = OptimizationParams()
+    sky = init_sky(torch.Generator().manual_seed(0), device="cuda")
+
+    # ---- gated K1 and K2 against their plain versions
+    def late_loss():
+        loss, g, _ = loss_grads(torch, state, cam, gt, bg, opt, LATE_ITER0,
+                                cap, gt_sem, True, sky)
+        return loss, g
+    k1_full, k2_full, a = gated_vs_plain(torch, kernel, late_loss,
+                                         "full_width")
+    if (a[8], a[9]) != (12, G_LATE):
+        raise AssertionError(f"the late loss ran the blend at nq={a[8]}, "
+                             f"G={a[9]}")
+    k1_dense, k2_dense, _ = gated_vs_plain(
+        torch, kernel, dense_gated_loss(torch, rasterize, RasterizeSettings),
+        "dense")
+    if not (k1_dense["counts"]["evaluated"]
+            > 1.1 * k1_dense["ungated_evaluated"]):
+        raise AssertionError("the dense case's gated chains did not outlive "
+                             "the main chain")
+
+    # ---- the late path: TRAIN_STEPS + 1 steps, every loss term on
+    opt_state = init_optimizer(state)
+    sky_opt = None
+    cuda_lib.reset_launch_counts()
+    losses, overflow = [], False
+    for i in range(TRAIN_STEPS + 1):
+        b = bin_step(state, cam, duplicate_capacity=cap, device="cuda")
+        state, opt_state, sky, sky_opt, m = train_step(
+            state, opt_state, cam, gt, bg, LATE_ITER0 + i, opt,
+            sky_params=sky, sky_opt_state=sky_opt, gt_semantic=gt_sem,
+            class_dist=True, duplicate_capacity=cap, binning=b,
+            device="cuda")
+        losses.append(float(m["loss"]))
+        overflow = overflow or bool(m["overflow"])
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launch_counts)
+    steps = TRAIN_STEPS + 1
+    finite = finite_state(torch, state, opt_state, sky, sky_opt)
+    falls = losses[-1] < losses[1]
+    ok = (finite and falls and not overflow and sky_opt.step == steps
+          and all(launches[k] >= steps for k in
+                  ("expand", "blend_fwd_gated", "blend_bwd_gated")))
+    emit("train_late_path", steps=steps, iteration0=LATE_ITER0,
+         n_gates=G_LATE, losses=losses, loss_falls=falls,
+         overflow=overflow, launches=launches, finite=finite,
+         sky_adam_steps=sky_opt.step)
+    if not ok:
+        raise AssertionError("the full-width late steps failed their checks")
+
+    # ---- the late step's time: host clock between synchronisations
+    counter = [LATE_ITER0 + steps]
+
+    def step():
+        nonlocal state, opt_state, sky, sky_opt
+        b = bin_step(state, cam, duplicate_capacity=cap, device="cuda")
+        state, opt_state, sky, sky_opt, _ = train_step(
+            state, opt_state, cam, gt, bg, counter[0], opt, sky_params=sky,
+            sky_opt_state=sky_opt, gt_semantic=gt_sem, class_dist=True,
+            duplicate_capacity=cap, binning=b, device="cuda")
+        counter[0] += 1
 
     for _ in range(3):
         step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = host_ms(step, 12)
+    times = host_ms(torch, step, 12)
     step_ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    # the semantic step (nq=12), one warm-up, then 5
-    step(gt_sem)
-    sem_times = host_ms(lambda: step(gt_sem), 5)
-
-    # stages, each alone on the inputs of one step (CUDA events)
-    it = TRAIN_ITER0 + steps + 20
-    loss, g, aux = loss_grads(torch, state, cam, gt, bg, opt, it, cap)
-    b = bin_step(state, cam, duplicate_capacity=cap, device="cuda")
-    names = list(g)[:-1]
-
-    def forward():
-        leaves = {n: getattr(state.params, n).detach().requires_grad_(True)
-                  for n in names}
-        st = dataclasses.replace(state, params=type(state.params)(**leaves))
-        return renderer.render(cam, st, bg, active_sh_degree=3,
-                               duplicate_capacity=cap, binning=b,
-                               device="cuda", center2d_offset=torch.zeros(
-                                   (state.capacity, 2), device="cuda",
-                                   requires_grad=True))
-
-    img = aux["image"].clone().requires_grad_(True)
-
-    def losses_fwd_bwd():
-        return torch.autograd.grad(
-            photometric_loss(img, gt, opt.lambda_dssim), img)
-
-    with capture_blend_backward(kernel) as cb:
-        loss_grads(torch, state, cam, gt, bg, opt, it, cap)
-    a = cb.args
-    drecT = kernel.blend_backward_cuda(*a)
-    idx = b.sorted_surfel
-    n_cols = state.capacity + 1
-
-    def record_scatter():
-        # what autograd runs for _gather_records' index_select backward
-        return torch.zeros((drecT.shape[0], n_cols),
-                           device="cuda").index_add_(1, idx, drecT)
-
-    # the preprocess and SH decode as the render builds them, up to the
-    # packed records; its backward alone on a retained graph, fed the
-    # scattered record gradients of the captured K2 call
-    leaves = {n: getattr(state.params, n).detach().requires_grad_(True)
-              for n in names}
-    off2d = torch.zeros((state.capacity, 2), device="cuda",
-                        requires_grad=True)
-    st = dataclasses.replace(state, params=type(state.params)(**leaves))
-    sur = preprocess_surfels(
-        st.params.xyz, st.get_scaling(), st.get_rotation(),
-        st.get_opacity()[:, 0], renderer.surfel_colors(st, cam, 3), cam.w2c,
-        cam.K, renderer._settings_for(cam, 1.0), center2d_offset=off2d)
-    packT = kernel.pack_geometry_T(sur, state.capacity)
-    dpackT = record_scatter()
-    bwd_inputs = list(leaves.values()) + [off2d]
-
-    def preprocess_sh_backward():
-        return torch.autograd.grad(packT, bwd_inputs, dpackT,
-                                   retain_graph=True, allow_unused=True)
-    p_copy = type(state.params)(**{n: getattr(state.params, n).clone()
-                                   for n in names})
-    o_copy = init_optimizer(state)
-    lrs = make_lrs(opt, it, state.spatial_scale)
-    g_params = type(state.params)(**{n: g[n] for n in names})
-    visible = aux["radii"] > 0
-    stage = dict(
-        binning=cuda_ms(torch, lambda: bin_step(
-            state, cam, duplicate_capacity=cap, device="cuda"), 10),
-        forward_render=cuda_ms(torch, forward, 10),
-        losses_fwd_bwd=cuda_ms(torch, losses_fwd_bwd, 10),
-        k2=cuda_ms(torch, lambda: kernel.blend_backward_cuda(*a), 10),
-        record_scatter=cuda_ms(torch, record_scatter, 10),
-        preprocess_sh_backward=cuda_ms(torch, preprocess_sh_backward, 10),
-        adam=cuda_ms(torch, lambda: adam_update(g_params, o_copy, p_copy,
-                                                lrs), 10),
-        densification_stats=cuda_ms(torch, lambda: add_densification_stats(
-            state, g["center2d_offset"], aux["radii"], visible), 10))
-    full = cuda_ms(torch, lambda: loss_grads(torch, state, cam, gt, bg, opt,
-                                             it, cap), 5)
-    emit("train_time", step_ms_median=step_ms, step_ms_all=times,
-         rays_per_s=W * H / (step_ms / 1e3),
-         semantic_step_ms_median=statistics.median(sem_times),
-         semantic_step_ms_all=sem_times, stages_ms=stage,
-         loss_and_grads_ms=full, stages_sum_ms=sum(stage.values()),
-         peak_mem_gib=peak, iteration=it,
-         note="step = bin_step + train_step; loss_and_grads = binning, "
-              "stage1_loss and its gradients; each stage alone in CUDA "
-              "events; the backward of the image assembly and "
-              "finalize_render is not timed alone")
-    emit("train_profile", **profile_frames(torch, step, 3))
-    return k2, launches
+    stage, full = step_stages(torch, state, cam, cap, bg, gt, opt,
+                              counter[0], gt_sem, True, sky)
+    emit("train_late_time", step_ms_median=step_ms, step_ms_all=times,
+         rays_per_s=W * H / (step_ms / 1e3), stages_ms=stage,
+         loss_and_grads_ms=full,
+         stages_sum_ms=sum(v for k, v in stage.items() if k != "k1"),
+         peak_mem_gib=peak, iteration=counter[0], n_gates=G_LATE,
+         note="step = bin_step + train_step with semantics, class_dist and "
+              "the sky; k1 and k2 are the gated kernels (k1 inside "
+              "forward_render, left out of the sum); sky_fwd_bwd is "
+              "render_sky and its backward; each stage alone in CUDA events")
+    emit("train_late_profile", **profile_frames(torch, step, 3))
+    return dict(k1=dict(k1_full, max_abs_err=max(k1_full["max_abs_err"],
+                                                 k1_dense["max_abs_err"])),
+                k2=dict(k2_full, max_abs_err=max(k2_full["max_abs_err"],
+                                                 k2_dense["max_abs_err"])),
+                launches=launches)
 
 
 def bench_fwd_bwd(torch, state, cam, iters=10):
@@ -590,18 +894,100 @@ def bench_fwd_bwd(torch, state, cam, iters=10):
          overflow=ovf, capacity=dup_cap)
 
 
-def train_scene_synthetic(torch):
+def ptxas_summary(log):
+    """Registers and spills of the kernel instantiations the paths run
+    (every K1, K2 at nq 6, 9 and 12, K2 gated at (6, 3) and (12, 5), K3),
+    from the build log's ptxas lines."""
+    import re
+    keep = {"K1<%d>" % g for g in range(7)} | {
+        "K2<6,0>", "K2<9,0>", "K2<12,0>", "K2<6,3>", "K2<12,5>", "K3"}
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"blend_(fwd|bwd)_kernelILi(\d+)E(?:Li(\d+)E)?",
+                          line)
+            if m and m.group(1) == "fwd":
+                name = f"K1<{m.group(2)}>"
+            elif m:
+                name = f"K2<{m.group(2)},{m.group(3)}>"
+            else:
+                name = "K3" if "expand_kernel" in line else None
+        elif name in keep and ("spill" in line or "registers" in line):
+            out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def reference_small_gated(torch, rasterize, settings_cls):
+    """``rasterize(class_gates=...)`` with 3 gates on the card at 64×48
+    against three separately gated renders through the port's own path
+    (opacity masked per class), as tests/test_kernel.py:124-165:
+    class_dist at 5e-5 and the main channels unchanged; the gradients of
+    Σ class_dist against the sum of the separate renders' distortion
+    gradients at atol 2e-4·max|g|, rtol 1e-3."""
+    import numpy as np
+    args, w2c, K = small_scene(torch)
+    st = settings_cls(width=64, height=48)
+    cls = np.random.default_rng(11).integers(0, 3, args[0].shape[0])
+    gates = torch.as_tensor(np.stack([cls == g for g in range(3)], 1),
+                            device="cuda")
+    masked = lambda op, g: torch.where(gates[:, g], op, torch.zeros_like(op))
+    out = rasterize(*args, w2c, K, st, class_gates=gates)
+    base = rasterize(*args, w2c, K, st)
+    fwd_err = [float((out.class_dist[..., g] - rasterize(
+        *args[:3], masked(args[3], g), args[4], w2c, K, st).distortion
+    ).abs().max()) for g in range(3)]
+    main_err = {f: float((getattr(out, f) - getattr(base, f)).abs().max())
+                for f in ("color", "alpha", "distortion")}
+
+    def grads(fused):
+        leaves = [args[i].clone().requires_grad_(True) for i in (0, 1, 3)]
+        p, sc, op = leaves
+        if fused:
+            loss = rasterize(p, sc, args[2], op, args[4], w2c, K, st,
+                             class_gates=gates).class_dist.sum()
+        else:
+            loss = sum(rasterize(p, sc, args[2], masked(op, g), args[4], w2c,
+                                 K, st).distortion.sum() for g in range(3))
+        return torch.autograd.grad(loss, leaves)
+
+    bwd = {}
+    for name, a, b in zip(("means", "scales", "opacities"), grads(True),
+                          grads(False)):
+        scale = float(b.abs().max())
+        bwd[name] = dict(max_abs=scale, max_abs_err=float((a - b).abs().max()),
+                         within_tolerance=bool(torch.allclose(
+                             a, b, atol=2e-4 * scale, rtol=1e-3)))
+    ok = (all(e <= TOL_MOMENT for e in fwd_err)
+          and main_err["color"] <= TOL_PAYLOAD
+          and main_err["alpha"] <= TOL_ALPHA
+          and main_err["distortion"] <= TOL_MOMENT
+          and float(out.class_dist.abs().max()) > 0
+          and all(v["within_tolerance"] for v in bwd.values()))
+    emit("reference_small_gated", class_dist_max_abs_err=fwd_err,
+         class_dist_max=float(out.class_dist.abs().max()),
+         main_vs_ungated_max_abs_err=main_err, gradients=bwd,
+         within_tolerance=ok)
+    if not ok:
+        raise AssertionError("gated render on the card disagrees with the "
+                             "separately gated renders")
+
+
+def train_scene_synthetic(torch, late=False):
     """The training CLI on the synthetic street scene at its defaults
     (4,000 points, 12 cameras, 160x112, every 8th view held out) for 300
     iterations with densification from iteration 100 at a gradient
     threshold of 5e-5 (at the default 2e-4 no surfel of this scene clones
     or splits in 300 iterations); held-out PSNR before and after, the
-    surfel count growing, and the checkpoint read back."""
+    surfel count growing, and the checkpoint read back. With ``late``:
+    ``--semantics --sky`` and the late phase from iteration 150
+    (``--semantic_dist_from_iter 150``), the sky composited in the
+    held-out PSNR and read back from the checkpoint."""
     import dataclasses
     from streetunveiler_torch.cli import train as cli_train
     from streetunveiler_torch.cli.common import scene_background
     from streetunveiler_torch.config import ModelParams
     from streetunveiler_torch.cli.common import load_scene_info
+    from streetunveiler_torch.models.sky import init_sky
     from streetunveiler_torch.scene.scene import Scene
     from streetunveiler_torch.train.checkpoint import load_checkpoint
     from streetunveiler_torch.train.loop import evaluate_views
@@ -612,17 +998,24 @@ def train_scene_synthetic(torch):
                                   device="cuda"), device="cuda")
     state0 = scene.create_state()
     bg = scene_background(scene, device="cuda")
-    p0, _ = evaluate_views(state0, scene.test_cameras, scene.test_images, bg)
+    # the CLI's initial sky (--seed 0)
+    sky0 = init_sky(torch.Generator().manual_seed(0), device="cuda") \
+        if late else None
+    p0, _ = evaluate_views(state0, scene.test_cameras, scene.test_images, bg,
+                           sky_params=sky0)
+    flags = (["--semantics", "--sky", "--semantic_dist_from_iter", "150"]
+             if late else [])
+    cuda_lib.reset_launch_counts()
     with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as tmp:
         t0 = time.perf_counter()
         state, reports = cli_train.main([
             "--model_path", tmp, "--iterations", str(iters), "--eval",
             "--log_every", "100", "--eval_every", "300", "--save_every",
             str(iters), "--densify_from_iter", "100",
-            "--densify_grad_threshold", "5e-5", "--device", "cuda"])
+            "--densify_grad_threshold", "5e-5", "--device", "cuda"] + flags)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        ck, _, it = load_checkpoint(os.path.join(
+        ck, _, it, sky, _ = load_checkpoint(os.path.join(
             tmp, "checkpoint", f"iteration_{iters}"), device="cuda")
         same = all(torch.equal(getattr(ck.params, f.name),
                                getattr(state.params, f.name))
@@ -631,18 +1024,28 @@ def train_scene_synthetic(torch):
         ply = os.path.exists(os.path.join(tmp, "point_cloud",
                                           f"iteration_{iters}",
                                           "point_cloud.ply"))
+    launches = dict(cuda_lib.launch_counts)
+    sky_ok = (sky is None) if not late else (
+        sky is not None and float((sky.mlp_b[-1] - sky0.mlp_b[-1]).abs()
+                                  .max()) > 0)
+    late_ok = not late or (launches["blend_fwd_gated"] >= iters - 150
+                           and launches["blend_bwd_gated"] >= iters - 150)
     p1 = reports[-1].test_psnr
     grew = max(r.n_alive for r in reports) > int(state0.num_alive)
-    ok = same and ply and it == iters and p1 >= p0 + 1.0 and grew
-    emit("train_scene_synthetic", iterations=iters, test_psnr_before=p0,
+    ok = (same and ply and it == iters and p1 >= p0 + 1.0 and grew
+          and sky_ok and late_ok)
+    emit("train_scene_synthetic_late" if late else "train_scene_synthetic",
+         iterations=iters, flags=flags, test_psnr_before=p0,
          test_psnr_after=p1, train_psnr=[r.psnr for r in reports],
          n_alive=[r.n_alive for r in reports],
          init_alive=int(state0.num_alive), densified=grew, wall_s=wall,
-         checkpoint_roundtrip=same, ply_written=ply)
+         checkpoint_roundtrip=same, ply_written=ply,
+         checkpoint_sky_trained=sky_ok, launches=launches)
     if not ok:
         raise AssertionError("training on the synthetic street did not "
                              "raise held-out PSNR by 1 dB, did not "
-                             "densify, or its checkpoint did not read "
+                             "densify, did not run the late phase, or its "
+                             "checkpoint (the sky included) did not read "
                              "back")
 
 
@@ -685,10 +1088,9 @@ def main():
     t0 = time.perf_counter()
     cuda_lib.load_library()
     build_s = time.perf_counter() - t0
-    ptxas = [l.strip() for l in cuda_lib.build_log().splitlines()
-             if "registers" in l or "spill" in l]
     emit("build", seconds=build_s, library=os.path.relpath(
-        cuda_lib.library_path(), ROOT), ptxas=ptxas)
+        cuda_lib.library_path(), ROOT),
+        ptxas=ptxas_summary(cuda_lib.build_log()))
 
     # ---- small-input reference: tiled path on the card vs untiled oracle
     args, w2c, K = small_scene(torch)
@@ -708,6 +1110,7 @@ def main():
     if not small_ok or float(ref.alpha.max()) <= 0.5:
         raise AssertionError("tiled render on the card disagrees with the "
                              "untiled oracle")
+    reference_small_gated(torch, rasterize, RasterizeSettings)
 
     # ---- the full-width scene, through a PLY round trip
     t0 = time.perf_counter()
@@ -800,8 +1203,9 @@ def main():
     off = binning.tile_offsets
     k1_args = (recT, off, binning.tiles_x, binning.tiles_y, settings, 6)
     acc, lk = kernel.blend_forward_cuda(*k1_args)
-    want_acc, want_lk, pairs = kernel.blend_forward_plain(
+    want_acc, want_lk, counts = kernel.blend_forward_plain(
         *k1_args, count_pairs=True)
+    pairs = counts["evaluated"]
     torch.cuda.synchronize()
     k1_err = check_blend(torch, acc, lk, want_acc, want_lk, 6,
                          "k1_vs_plain_nq6")
@@ -877,12 +1281,18 @@ def main():
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     emit("profile", **profile_frames(torch, frame, 3))
 
-    # ---- 7. the training slice at full width, then the training CLI
-    k2, train_launches = train_phases(torch, state, cam, cap)
+    # ---- 7. the training slice at full width, the late phase, then the
+    # training CLI without and with the late phase
+    bg, gt, gt_sem = ground_truth(torch, state, cam, cap)
+    k2, train_launches = train_phases(torch, state, cam, cap, bg, gt, gt_sem)
+    late = late_phases(torch, state, cam, cap, bg, gt, gt_sem)
     bench_fwd_bwd(torch, state, cam)
     train_scene_synthetic(torch)
+    train_scene_synthetic(torch, late=True)
 
-    # ---- 8. kernels; launches are those of the training main path
+    # ---- 8. kernels; launches are those of the training main path, and
+    # of the late path for the gated variants
+    k1g, k2g = late["k1"], late["k2"]
     kernels = [
         dict(name="K3 tile expansion", route="cuda",
              source="streetunveiler_torch/ops/rasterizer/csrc/expand.cu",
@@ -901,13 +1311,29 @@ def main():
              bound_by="operations" if k1_bound_ops >= k1_bound_bytes
              else "bytes", library_ms=None),
         dict(name="K2 blend backward", route="cuda",
-             source="streetunveiler_torch/ops/rasterizer/csrc/blend_bwd.cu",
+             source="streetunveiler_torch/ops/rasterizer/csrc/blend_bwd.cuh",
              replaces="streetunveiler_tpu/ops/rasterizer/kernel.py:406",
              launches=train_launches["blend_bwd"],
              max_abs_err=max(k2[6]["max_abs_err"], k2[12]["max_abs_err"]),
              ms=k2[6]["ms"], plain_ms=k2[6]["plain_ms"],
              bound_ms=k2[6]["bound_ms"], bound_by=k2[6]["bound_by"],
              library_ms=None),
+        dict(name="K1 blend forward, gated chains (G=5, nq=12)",
+             route="cuda",
+             source="streetunveiler_torch/ops/rasterizer/csrc/blend_fwd.cu",
+             replaces="streetunveiler_tpu/ops/rasterizer/kernel.py:332",
+             launches=late["launches"]["blend_fwd_gated"],
+             max_abs_err=k1g["max_abs_err"], ms=k1g["ms"],
+             plain_ms=k1g["plain_ms"], bound_ms=k1g["bound_ms"],
+             bound_by=k1g["bound_by"], library_ms=None),
+        dict(name="K2 blend backward, gated chains (G=5, nq=12)",
+             route="cuda",
+             source="streetunveiler_torch/ops/rasterizer/csrc/blend_bwd.cuh",
+             replaces="streetunveiler_tpu/ops/rasterizer/kernel.py:518",
+             launches=late["launches"]["blend_bwd_gated"],
+             max_abs_err=k2g["max_abs_err"], ms=k2g["ms"],
+             plain_ms=k2g["plain_ms"], bound_ms=k2g["bound_ms"],
+             bound_by=k2g["bound_by"], library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,16 +2,19 @@
 train.py``), on the synthetic street scene:
 
     python -m streetunveiler_torch.cli.train --model_path /tmp/model \
-        --iterations 2000 [--semantics] [--device cuda]
+        --iterations 2000 [--semantics] [--sky] [--device cuda]
 
-Runs on the card by default (``--device cpu`` for the CPU). Persists
+Runs on the card by default (``--device cpu`` for the CPU). With
+``--semantics`` the step adds the semantic cross entropy and, past
+``semantic_dist_from_iter``, the gated per-class distortion; ``--sky``
+trains the sky model jointly (initialised from ``--seed``). Persists
 ``cfg_args.json`` and ``cameras.json`` into the model dir, saves PLYs at
 ``--save_every`` and a resumable ``checkpoint/iteration_N/splatting.npz``
-at the end; ``--start_iteration N`` resumes from one. Option groups of
-``config.py`` are overridable as ``--field value``. Not ported yet, and
-refused: the file-based readers (``--scene`` other than synthetic), the
-sky (``--sky``), multi-device meshes (``--tile_devices``,
-``--data_devices``, ``--multihost``) and ``--profile``.
+(the sky included) at the end; ``--start_iteration N`` resumes from one.
+Option groups of ``config.py`` are overridable as ``--field value``. Not
+ported yet, and refused: the file-based readers (``--scene`` other than
+synthetic), multi-device meshes (``--tile_devices``, ``--data_devices``,
+``--multihost``) and ``--profile``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ def main(argv=None):
     ap.add_argument("--iterations", type=int, default=None)
     ap.add_argument("--capacity", type=int, default=0)
     ap.add_argument("--resolution", type=int, default=-1)
-    ap.add_argument("--sky", action="store_true")
+    ap.add_argument("--sky", action="store_true",
+                    help="train the sky model jointly")
     ap.add_argument("--semantics", action="store_true")
     ap.add_argument("--start_iteration", type=int, default=0,
                     help="resume from checkpoint/iteration_N")
@@ -56,16 +60,17 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     args, rest = ap.parse_known_args(argv)
 
-    if args.sky:
-        _refuse("--sky", "the sky slice, item 10")
     if args.tile_devices > 1 or args.data_devices > 1 or args.multihost:
         _refuse("multi-device training", "the multi-device slice, item 16")
     if args.profile:
         _refuse("--profile", "the render/eval slice, item 12")
 
+    import torch
+
     from ..config import (ModelParams, OptimizationParams, PipelineParams,
                           apply_overrides, save_config)
     from ..device import resolve_device, strict_fp32
+    from ..models.sky import init_sky
     from ..scene.scene import Scene
     from ..train.checkpoint import load_checkpoint, save_checkpoint
     from ..train.loop import train_scene
@@ -101,12 +106,22 @@ def main(argv=None):
           f"device {dev}")
     bg = scene_background(scene, model.white_background, device=dev)
 
+    sky_params = None
+    if args.sky:
+        sky_params = init_sky(torch.Generator().manual_seed(args.seed),
+                              device=dev)
+
     opt_state = init_optimizer(state)
     start_iteration = args.start_iteration
     if start_iteration > 0:
         ckpt_dir = os.path.join(args.model_path, "checkpoint",
                                 f"iteration_{start_iteration}")
-        state, opt_state, it = load_checkpoint(ckpt_dir, device=dev)
+        state, opt_state, it, ck_sky, _ = load_checkpoint(ckpt_dir,
+                                                          device=dev)
+        if sky_params is not None:
+            if ck_sky is None:
+                raise SystemExit(f"--sky: {ckpt_dir} holds no sky")
+            sky_params = ck_sky
         print(f"resumed from {ckpt_dir} at iteration {it}")
 
     iterations = args.iterations or opt.iterations
@@ -122,8 +137,9 @@ def main(argv=None):
 
     logger = TrainLogger(os.path.join(args.model_path, "logs"))
     try:
-        state, _, reports = train_scene(
-            scene, state, opt, bg=bg, iterations=iterations,
+        state, sky_params, reports = train_scene(
+            scene, state, opt, sky_params=sky_params, bg=bg,
+            iterations=iterations,
             start_iteration=start_iteration, save_iterations=saves,
             log_every=args.log_every, eval_every=args.eval_every,
             duplicate_capacity=args.duplicate_capacity or None,
@@ -134,7 +150,8 @@ def main(argv=None):
 
     ckpt_dir = os.path.join(args.model_path, "checkpoint",
                             f"iteration_{iterations}")
-    save_checkpoint(ckpt_dir, state, init_optimizer(state), iterations)
+    save_checkpoint(ckpt_dir, state, init_optimizer(state), iterations,
+                    sky_params=sky_params)
     print(f"saved {ckpt_dir}")
     return state, reports
 

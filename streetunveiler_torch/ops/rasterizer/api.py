@@ -83,17 +83,29 @@ def rasterize_stream(recT, radii, settings: RasterizeSettings, binning,
                      bg=None, nq: int = NQ, gates_n: int = 0) -> RenderOutput:
     """Blend + image assembly over an already-gathered record stream
     ``recT`` [rec, cap] (``_gather_records(packT, binning.sorted_surfel)``).
+    With ``gates_n`` > 0 the records carry the class bitmask in row
+    Q_ROW0 + nq (``encode_extra``) and ``class_dist`` [H, W, G] holds each
+    class's gated distortion.
     """
     acc, _ = blend_stream(recT, binning.tile_offsets, binning.tiles_x,
                           binning.tiles_y, settings, nq, gates_n)
     ch = ch_for(nq)
+    ch_tot = ch + 4 * gates_n
 
-    # [T, PIX, ch] → [ch, H, W]
+    # [T, PIX, ch_tot] → [ch_tot, H, W]
     h, w_img = settings.height, settings.width
-    img = acc.reshape(binning.tiles_y, binning.tiles_x, TILE_H, TILE_W, ch)
+    img = acc.reshape(binning.tiles_y, binning.tiles_x, TILE_H, TILE_W,
+                      ch_tot)
     img = img.permute(4, 0, 2, 1, 3).reshape(
-        ch, binning.tiles_y * TILE_H, binning.tiles_x * TILE_W)
+        ch_tot, binning.tiles_y * TILE_H, binning.tiles_x * TILE_W)
     img = img[:, :h, :w_img]
+
+    class_dist = None
+    if gates_n:
+        # per class (α_g, m1_g, m2_g, lk_g) after the main channels; each
+        # distortion telescopes like the main one below
+        al, m1g, m2g = img[ch::4], img[ch + 1::4], img[ch + 2::4]
+        class_dist = (al * m2g - m1g * m1g).permute(1, 2, 0)
 
     color = img[0:3].permute(1, 2, 0)
     alpha = img[nq]
@@ -115,6 +127,7 @@ def rasterize_stream(recT, radii, settings: RasterizeSettings, binning,
         overflow=binning.overflow,
         demand=binning.demand,
         extra=None if nq == NQ else img[6:nq].permute(1, 2, 0),
+        class_dist=class_dist,
     )
 
 
@@ -130,13 +143,10 @@ def rasterize(means3d, scales, quats, opacities, colors, w2c, K,
     ``colors`` [N, 3]. ``extra_payload`` [N, E] blends E more per-surfel
     channels with the same weights in the same pass (``out.extra``).
     ``binning``: a precomputed ``StreamBinning`` from ``bin_for_camera``;
-    its own capacity rules. ``class_gates`` (fused per-class distortion
-    chains) is not ported yet and raises.
+    its own capacity rules. ``class_gates`` [N, G] bool runs G gated
+    per-class distortion chains in the same blend (``out.class_dist``
+    [H, W, G]: each class's distortion as if only its surfels rendered).
     """
-    if class_gates is not None:
-        raise NotImplementedError(
-            "class_gates (gated per-class distortion chains) are not ported "
-            "yet: they come with the late-phase semantic slice")
     n = means3d.shape[0]
     c = colors.shape[-1]
     if c != 3:
@@ -155,12 +165,13 @@ def rasterize(means3d, scales, quats, opacities, colors, w2c, K,
     sur = preprocess_surfels(means3d, scales, quats, opacities, colors,
                              w2c, K, settings, center2d_offset=center2d_offset)
     nq = NQ + (0 if extra_payload is None else extra_payload.shape[1])
+    pack_extra, gates_n = encode_extra(extra_payload, class_gates)
     if binning is None:
         binning = bin_surfels_stream(
             sur.center2d.detach(), sur.ext, sur.depth.detach(), sur.valid,
             settings.width, settings.height, TILE_W, TILE_H,
             duplicate_capacity, max_tiles_per_surfel, cull=sur.cull)
-    recT = _gather_records(pack_geometry_T(sur, n, extra_payload),
+    recT = _gather_records(pack_geometry_T(sur, n, pack_extra),
                            binning.sorted_surfel)
     return rasterize_stream(recT, sur.radius, settings, binning, bg=bg,
-                            nq=nq)
+                            nq=nq, gates_n=gates_n)

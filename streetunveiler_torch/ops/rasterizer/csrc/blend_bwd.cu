@@ -1,347 +1,33 @@
-// K2 — 2DGS blend backward over the tile-grouped, depth-sorted duplicate
-// stream.
-//
-// Replaces the Pallas kernel streetunveiler_tpu/ops/rasterizer/kernel.py
-// `_bwd_kernel` (launched by `_blend_bwd`, kernel.py:709-760, the custom
-// VJP of `blend_stream`), for n_gates == 0. Same result: dgrad [rec, cap],
-// the gradient of each duplicate's packed record in stream order, from the
-// records, the forward's accumulator and lk, and the accumulator's
-// cotangent dacc [n_tiles, 512, nq + 6].
-//
-// Math, per pixel, walking its tile's duplicates back to front from the
-// pixel's last composited one (lk): U starts at 1 - alpha_final and S at
-// 0; for a kept pair (alpha > 0 and index <= lk)
-//   T_excl = U / (1 - a),  U <- T_excl,  w = a T_excl,
-//   Omega  = gq.q + g_alpha + g_depth t + g_m1 m + g_m2 m^2,
-//   da     = T_excl Omega - S / (1 - a),  S <- S + w Omega,
-//   dt     = w (g_depth + (g_m1 + 2 m g_m2) dm/dt),
-// then the pair function's VJP maps (da, dt) onto record rows 0-9 and the
-// payload rows get dq = gq w. This is kernel.py:465-513 as a running scan:
-// the TPU's log-space suffix matmuls, MXU contractions and sum-based any()
-// were Mosaic workarounds and have no counterpart. The division rebuild of
-// T_excl needs t_eps > 0 (so U never reaches 0) and a <= 0.99.
-//
-// The pair VJP, by hand (the plain version takes it from autograd of
-// blendmath.pair_alpha_depth): the alpha clamp passes the gradient while
-// opacity * g <= 0.99 (torch.clamp's rule); rho and t follow the `use2d`
-// branch (low-pass: gradient to the center and, through t, the center
-// depth; else to k and det M); the kz guard stops the gradient where it
-// replaced kz. The alpha >= 1/255 and t >= znear gates decide `contrib`
-// exactly as in K1 (pair_math.cuh). Since k = A + px B + py C and
-// det M = r3 . A are linear in the per-surfel A, B, C, each thread
-// produces dA, dB = px dk, dC = py dk, d det, the low-pass center
-// gradient, the center-depth gradient and d opacity (14 values) plus nq
-// payload gradients; the block sums them over its 512 pixels and one
-// thread per duplicate chains the sums through the cross products onto
-// rows 0-9 (M's third column is rebuilt from c2d * z, so rows 6-8 get
-// gradient through it: that is how the screen-space gradient for
-// densification is read).
-//
-// What bounds it on an H100: operations. Every evaluated pair (index <=
-// the pixel's lk) costs the forward recompute, ~33 f32 operations; only a
-// kept pair (one that passes the alpha >= 1/255 and t >= znear gates) goes
-// on to the scan and the VJP, ~68 more, and the 14 pixel sums, plus 4
-// per payload channel (gq.q, gq w and its sum): ~82 + 4 nq per kept pair.
-// Against that, records, accumulators and cotangents are read once and
-// dgrad written once (~0.4 GB at the 300k-surfel street scene).
-//
-// Design: one block of 512 threads per 16x32 tile, one thread per pixel,
-// mirroring K1. The block takes the largest lk of its pixels and skips
-// every duplicate above it; it walks the rest backwards in batches of
-// kB duplicates staged in shared memory (the hoisted geometry of
-// pair_math.cuh and the payload). For each duplicate every warp sums its
-// lanes' values with shuffles (skipped when no lane kept the pair) and
-// stores one partial per warp; after the batch the 16 partials are added
-// in a fixed order and written once to dgrad. Every slot belongs to one
-// tile, so no atomics are needed and the result does not vary from run to
-// run; the wrapper zeroes dgrad, so slots past the stream's total, slots of
-// empty tiles and the rows past 10 + nq stay zero.
+// K2 — 2DGS blend backward: the instantiations without gated chains and
+// the C interface. The kernel, its math and its design are in
+// blend_bwd.cuh; the gated instantiations are in blend_bwd_gated.cu.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "blend_bwd.cuh"
 
-#include "pair_math.cuh"
-
-namespace {
-
-using su_pair::kGeo;
-using su_pair::kQRow0;
-
-constexpr int kTileW = 32;
-constexpr int kTileH = 16;
-constexpr int kPix = kTileW * kTileH;
-constexpr int kWarps = kPix / 32;
-constexpr int kB = 32;           // duplicates staged per batch
-constexpr int kNv = 14;          // summed geometry values per duplicate
-constexpr int kMaxQ = 16;        // payload channels a launch may carry
-constexpr unsigned kFull = 0xffffffffu;
-
-// indices of the summed geometry values
-constexpr int kDA = 0;           // dA (3): d k, summed
-constexpr int kDB = 3;           // dB (3): px d k
-constexpr int kDC = 6;           // dC (3): py d k
-constexpr int kDDet = 9;         // d det M
-constexpr int kDCx = 10;         // low-pass center gradient, x
-constexpr int kDCy = 11;         //                           y
-constexpr int kDZ = 12;          // center depth, through t where use2d
-constexpr int kDOp = 13;         // opacity
-
-template <int NQ>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         ((size_t)(kGeo + NQ) * kB + (size_t)kWarps * kB * (kNv + NQ) +
-          (size_t)kB * (kNv + NQ));
-}
-
-template <int NQ>
-__global__ void __launch_bounds__(kPix, 1)
-blend_bwd_kernel(const float* __restrict__ recT, int cap,
-                 const int32_t* __restrict__ tile_offsets, int tiles_x,
-                 float znear, float zfar, const float* __restrict__ acc,
-                 const int32_t* __restrict__ lk,
-                 const float* __restrict__ dacc,
-                 float* __restrict__ dgrad) {
-  constexpr int V = kNv + NQ;
-  constexpr int CH = NQ + 6;
-  extern __shared__ float sm[];
-  float* geo = sm;                          // [kGeo + NQ][kB]
-  float* part = geo + (kGeo + NQ) * kB;     // [kWarps][kB][V]
-  float* red = part + kWarps * kB * V;      // [kB][V]
-  __shared__ int s_maxlk;
-
-  const int tile = blockIdx.x;
-  const int p = threadIdx.x;
-  const int warp = p >> 5;
-  const int lane = p & 31;
-  const int ty = tile / tiles_x;
-  const int tx = tile - ty * tiles_x;
-  const float px = (float)(tx * kTileW + p % kTileW) + 0.5f;
-  const float py = (float)(ty * kTileH + p / kTileW) + 0.5f;
-  const int start = tile_offsets[tile];
-  const int end = tile_offsets[tile + 1];
-  const size_t pix = (size_t)tile * kPix + p;
-  const int my_lk = lk[pix];
-
-  if (p == 0) s_maxlk = -1;
-  __syncthreads();
-  if (my_lk >= 0) atomicMax(&s_maxlk, my_lk);
-  __syncthreads();
-  const int top_all = min(end, s_maxlk + 1);
-  if (top_all <= start) return;   // no pixel kept a pair: gradient-free
-
-  const float* d = dacc + pix * CH;
-  float gq[NQ];
-#pragma unroll
-  for (int k = 0; k < NQ; ++k) gq[k] = d[k];
-  const float g_alpha = d[NQ], g_depth = d[NQ + 1];
-  const float g_m1 = d[NQ + 3], g_m2 = d[NQ + 4];
-  const float dscale = zfar / (zfar - znear);
-  const float dmdt_num = zfar * znear / (zfar - znear);
-  float U = 1.0f - acc[pix * CH + NQ];   // transmittance after the pair
-  float S = 0.0f;                        // sum of w * Omega behind it
-
-  for (int top = top_all; top > start; top -= kB) {
-    const int base = max(start, top - kB);
-    const int nb = top - base;
-    __syncthreads();   // the previous batch's shared reads are done
-    if (p < nb) {
-      const float* r = recT + base + p;
-      const size_t ld = (size_t)cap;
-      su_pair::stage_geometry(r, ld, geo, kB, p);
-#pragma unroll
-      for (int k = 0; k < NQ; ++k)
-        geo[(kGeo + k) * kB + p] = r[(size_t)(kQRow0 + k) * ld];
-    }
-    __syncthreads();
-
-    for (int j = nb - 1; j >= 0; --j) {
-      float v[V];
-#pragma unroll
-      for (int i = 0; i < V; ++i) v[i] = 0.0f;
-      bool keep = false;
-      if (base + j <= my_lk) {
-        const su_pair::Pair e =
-            su_pair::eval_pair(geo, kB, j, px, py, znear);
-        if (e.contrib) {
-          keep = true;
-          const float a = e.a, t = e.t;
-          const float one_m = 1.0f - a;
-          const float T = U / one_m;
-          U = T;
-          const float w = a * T;
-          float gqq = 0.0f;
-#pragma unroll
-          for (int k = 0; k < NQ; ++k) {
-            const float q = geo[(kGeo + k) * kB + j];
-            gqq += gq[k] * q;
-            v[kNv + k] = gq[k] * w;
-          }
-          const float m = dscale * (1.0f - znear / fmaxf(t, 1e-6f));
-          const float omega =
-              gqq + g_alpha + g_depth * t + g_m1 * m + g_m2 * m * m;
-          const float da = T * omega - S / one_m;
-          S += w * omega;
-          const float dmdt = dmdt_num / fmaxf(t * t, 1e-12f);
-          const float dt = w * (g_depth + (g_m1 + 2.0f * m * g_m2) * dmdt);
-
-          // VJP of the pair function
-          const float opac = geo[13 * kB + j];
-          const float dar = e.araw <= su_pair::kAlphaMax ? da : 0.0f;
-          v[kDOp] = dar * e.g;
-          const float drho = dar * opac * e.g * -0.5f;
-          float drho3 = 0.0f, dtis = 0.0f;
-          if (e.use2d) {
-            // rho2d = 2 |p - c|^2
-            const float c = -2.0f * su_pair::kFilterInvSquare * drho;
-            v[kDCx] = c * e.dx;
-            v[kDCy] = c * e.dy;
-            v[kDZ] = dt;
-          } else {
-            drho3 = drho;
-            dtis = dt;
-          }
-          // rho3d = (kx^2 + ky^2) rcp^2, t = det rcp, rcp = 1 / kz
-          const float rcp2 = e.rcp * e.rcp;
-          const float dkx = drho3 * 2.0f * e.kx * rcp2;
-          const float dky = drho3 * 2.0f * e.ky * rcp2;
-          const float drcp =
-              drho3 * (e.kx * e.kx + e.ky * e.ky) * 2.0f * e.rcp +
-              dtis * geo[9 * kB + j];
-          v[kDDet] = dtis * e.rcp;
-          const float dkz = fabsf(e.kz) < 1e-12f ? 0.0f : -drcp * rcp2;
-          v[kDA + 0] = dkx;
-          v[kDA + 1] = dky;
-          v[kDA + 2] = dkz;
-          v[kDB + 0] = px * dkx;
-          v[kDB + 1] = px * dky;
-          v[kDB + 2] = px * dkz;
-          v[kDC + 0] = py * dkx;
-          v[kDC + 1] = py * dky;
-          v[kDC + 2] = py * dkz;
-        }
-      }
-      if (__any_sync(kFull, keep)) {
-#pragma unroll
-        for (int i = 0; i < V; ++i) {
-          float x = v[i];
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-          v[i] = x;
-        }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int i = 0; i < V; ++i) part[(warp * kB + j) * V + i] = v[i];
-      }
-    }
-    __syncthreads();
-
-    // the 16 warp partials, added in a fixed order
-    for (int idx = p; idx < nb * V; idx += kPix) {
-      const int j = idx / V;
-      const int i = idx - j * V;
-      float s = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += part[(w * kB + j) * V + i];
-      red[j * V + i] = s;
-    }
-    __syncthreads();
-
-    // one thread per duplicate: chain the sums through the cross products
-    if (p < nb) {
-      const float* r = recT + base + p;
-      const size_t ld = (size_t)cap;
-      const float* s = red + p * V;
-      const float r1x = r[0 * ld], r2x = r[1 * ld], r3x = r[2 * ld];
-      const float r1y = r[3 * ld], r2y = r[4 * ld], r3y = r[5 * ld];
-      const float c2dx = r[6 * ld], c2dy = r[7 * ld], z = r[8 * ld];
-      const float r1z = c2dx * z, r2z = c2dy * z, r3z = z;
-      const float ax = r1y * r2z - r1z * r2y;
-      const float ay = r1z * r2x - r1x * r2z;
-      const float az = r1x * r2y - r1y * r2x;
-      const float ddet = s[kDDet];
-      // det = r3 . A: d r3 += ddet A, d A += ddet r3
-      const float gax = s[kDA + 0] + ddet * r3x;
-      const float gay = s[kDA + 1] + ddet * r3y;
-      const float gaz = s[kDA + 2] + ddet * r3z;
-      const float gbx = s[kDB + 0], gby = s[kDB + 1], gbz = s[kDB + 2];
-      const float gcx = s[kDC + 0], gcy = s[kDC + 1], gcz = s[kDC + 2];
-      // A = r1 x r2: d r1 += r2 x dA, d r2 += dA x r1
-      // B = r2 x r3: d r2 += r3 x dB, d r3 += dB x r2
-      // C = r3 x r1: d r3 += r1 x dC, d r1 += dC x r3
-      const float d1x = (r2y * gaz - r2z * gay) + (gcy * r3z - gcz * r3y);
-      const float d1y = (r2z * gax - r2x * gaz) + (gcz * r3x - gcx * r3z);
-      const float d1z = (r2x * gay - r2y * gax) + (gcx * r3y - gcy * r3x);
-      const float d2x = (gay * r1z - gaz * r1y) + (r3y * gbz - r3z * gby);
-      const float d2y = (gaz * r1x - gax * r1z) + (r3z * gbx - r3x * gbz);
-      const float d2z = (gax * r1y - gay * r1x) + (r3x * gby - r3y * gbx);
-      const float d3x = ddet * ax + (gby * r2z - gbz * r2y) +
-                        (r1y * gcz - r1z * gcy);
-      const float d3y = ddet * ay + (gbz * r2x - gbx * r2z) +
-                        (r1z * gcx - r1x * gcz);
-      const float d3z = ddet * az + (gbx * r2y - gby * r2x) +
-                        (r1x * gcy - r1y * gcx);
-      float* o = dgrad + base + p;
-      o[0 * ld] = d1x;
-      o[1 * ld] = d2x;
-      o[2 * ld] = d3x;
-      o[3 * ld] = d1y;
-      o[4 * ld] = d2y;
-      o[5 * ld] = d3y;
-      // r1z = c2dx z, r2z = c2dy z, r3z = z
-      o[6 * ld] = s[kDCx] + d1z * z;
-      o[7 * ld] = s[kDCy] + d2z * z;
-      o[8 * ld] = s[kDZ] + d1z * c2dx + d2z * c2dy + d3z;
-      o[9 * ld] = s[kDOp];
-#pragma unroll
-      for (int k = 0; k < NQ; ++k) o[(size_t)(kQRow0 + k) * ld] = s[kNv + k];
-    }
-  }
-}
-
-template <int NQ>
-cudaError_t launch(const float* recT, int cap, const int32_t* tile_offsets,
-                   int n_tiles, int tiles_x, float znear, float zfar,
-                   const float* acc, const int32_t* lk, const float* dacc,
-                   float* dgrad, cudaStream_t stream) {
-  const size_t smem = smem_bytes<NQ>();
-  cudaError_t err = cudaFuncSetAttribute(
-      blend_bwd_kernel<NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  blend_bwd_kernel<NQ><<<n_tiles, kPix, smem, stream>>>(
-      recT, cap, tile_offsets, tiles_x, znear, zfar, acc, lk, dacc, dgrad);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// recT [rec, cap] f32 lane-major records (rec >= 10 + nq); tile_offsets
-// [n_tiles + 1] int32; acc and dacc [n_tiles, 512, nq + 6] f32; lk
-// [n_tiles, 512] int32; dgrad [rec, cap] f32, zeroed by the caller.
-// Returns cudaGetLastError().
+// recT [rec, cap] f32 lane-major records (rec >= 10 + nq, and > gate_row
+// with gates); tile_offsets [n_tiles + 1] int32; acc and dacc [n_tiles,
+// 512, nq + 6 + 4 n_gates] f32; lk [n_tiles, 512] int32; dgrad [rec, cap]
+// f32, zeroed by the caller. Returns cudaGetLastError().
 extern "C" int su_blend_bwd(const float* recT, int rec, int cap, int nq,
+                            int n_gates, int gate_row,
                             const int32_t* tile_offsets, int n_tiles,
                             int tiles_x, float znear, float zfar,
                             const float* acc, const int32_t* lk,
                             const float* dacc, float* dgrad, int device,
                             void* stream) {
-  if (nq < 1 || nq > kMaxQ || rec < kQRow0 + nq || n_tiles < 0)
+  using namespace su_bwd;
+  if (nq < 1 || nq > kMaxQ || rec < kQRow0 + nq || n_tiles < 0 ||
+      n_gates < 0 || n_gates > kMaxGates ||
+      (n_gates > 0 && (gate_row < 0 || gate_row >= rec || cap >= kMaxStream)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_tiles == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-#define SU_BWD_CASE(Q)                                                     \
-  case Q:                                                                  \
-    return (int)launch<Q>(recT, cap, tile_offsets, n_tiles, tiles_x,      \
-                          znear, zfar, acc, lk, dacc, dgrad, s);
-  switch (nq) {
-    SU_BWD_CASE(1) SU_BWD_CASE(2) SU_BWD_CASE(3) SU_BWD_CASE(4)
-    SU_BWD_CASE(5) SU_BWD_CASE(6) SU_BWD_CASE(7) SU_BWD_CASE(8)
-    SU_BWD_CASE(9) SU_BWD_CASE(10) SU_BWD_CASE(11) SU_BWD_CASE(12)
-    SU_BWD_CASE(13) SU_BWD_CASE(14) SU_BWD_CASE(15) SU_BWD_CASE(16)
-  }
-#undef SU_BWD_CASE
-  return (int)cudaErrorInvalidValue;
+  if (n_gates > 0)
+    return (int)launch_gated(n_gates, nq, recT, cap, gate_row, tile_offsets,
+                             n_tiles, tiles_x, znear, zfar, acc, lk, dacc,
+                             dgrad, s);
+  return (int)launch_nq<0>(nq, recT, cap, gate_row, tile_offsets, n_tiles,
+                           tiles_x, znear, zfar, acc, lk, dacc, dgrad, s);
 }

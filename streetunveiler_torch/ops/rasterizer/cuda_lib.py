@@ -36,7 +36,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v"]
 
-launch_counts = {"blend_fwd": 0, "blend_bwd": 0, "expand": 0}
+launch_counts = {"blend_fwd": 0, "blend_bwd": 0, "expand": 0,
+                 "blend_fwd_gated": 0, "blend_bwd_gated": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -144,11 +145,13 @@ def load_library() -> ctypes.CDLL:
             lib.su_expand.argtypes = [vp, i32, vp, i32, i32, i32, i32, i32,
                                       i32, vp, vp, i32, vp]
             lib.su_expand.restype = i32
-            lib.su_blend_fwd.argtypes = [vp, i32, i32, i32, vp, i32, i32,
-                                         f32, f32, f32, vp, vp, i32, vp]
+            lib.su_blend_fwd.argtypes = [vp, i32, i32, i32, i32, i32, vp,
+                                         i32, i32, f32, f32, f32, vp, vp,
+                                         i32, vp]
             lib.su_blend_fwd.restype = i32
-            lib.su_blend_bwd.argtypes = [vp, i32, i32, i32, vp, i32, i32,
-                                         f32, f32, vp, vp, vp, vp, i32, vp]
+            lib.su_blend_bwd.argtypes = [vp, i32, i32, i32, i32, i32, vp,
+                                         i32, i32, f32, f32, vp, vp, vp, vp,
+                                         i32, vp]
             lib.su_blend_bwd.restype = i32
             lib.su_error_string.argtypes = [i32]
             lib.su_error_string.restype = ctypes.c_char_p

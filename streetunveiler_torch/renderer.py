@@ -132,9 +132,10 @@ def render(camera: Camera, state: SurfelState, bg,
 
     opacity_mask [C] bool: surfels where False render with opacity 0.
     colors_override [C,3]: skip the SH decode. extra_payload [C,E]: extra
-    channels blended in the same pass (→ ``result.extra``). binning: a
-    precomputed StreamBinning from ``bin_camera`` of the same state,
-    camera and mask. class_gates is not ported yet and raises.
+    channels blended in the same pass (→ ``result.extra``). class_gates
+    [C,G] bool: G gated per-class distortion chains in the same pass (→
+    ``result.class_dist`` [H,W,G]). binning: a precomputed StreamBinning
+    from ``bin_camera`` of the same state, camera and mask.
     """
     dev = resolve_device(device)
     state = state.to(dev)
@@ -156,7 +157,9 @@ def render(camera: Camera, state: SurfelState, bg,
                         duplicate_capacity=duplicate_capacity,
                         extra_payload=(None if extra_payload is None
                                        else extra_payload.to(dev)),
-                        class_gates=class_gates, binning=binning)
+                        class_gates=(None if class_gates is None
+                                     else class_gates.to(dev)),
+                        binning=binning)
     return finalize_render(out, camera, depth_ratio=depth_ratio)
 
 

@@ -1,9 +1,10 @@
 """Stage-1 reconstruction loop (counterpart of ``streetunveiler_tpu/train/
 loop.py``): camera order without replacement, the densify / prune /
-opacity-reset schedule, the late semantic-aware prune, demand-driven
-duplicate capacity, held-out evaluation, PLY saves and logging around
-``train_step``. Multi-device training (``train_scene_sharded``) comes
-with the multi-device slice.
+opacity-reset schedule, the late phase (the gated per-class distortion
+past ``semantic_dist_from_iter``) and the late semantic-aware prune, the
+jointly trained sky, demand-driven duplicate capacity, held-out
+evaluation, PLY saves and logging around ``train_step``. Multi-device
+training (``train_scene_sharded``) comes with the multi-device slice.
 """
 
 from __future__ import annotations
@@ -20,9 +21,11 @@ from ..device import resolve_device, strict_fp32
 from ..models.gaussians import (SurfelState, densify_and_prune, prune_mask,
                                 reset_opacity)
 from ..ops.rasterizer.api import default_duplicate_capacity
+from ..models.sky import render_sky
 from ..renderer import render, round_capacity
 from ..utils.semantics import SKY_BIT, VEGETATION_BIT
 from .losses import psnr as psnr_fn
+from .optim import adam_init
 from .step import bin_step, init_optimizer, train_step
 
 
@@ -40,9 +43,10 @@ class TrainReport:
 
 
 @torch.no_grad()
-def _eval_view(state, cam, gt, bg, duplicate_capacity=None,
+def _eval_view(state, cam, gt, bg, sky_params=None, duplicate_capacity=None,
                n_slabs: int = 1):
-    """Render + PSNR/L1 for one held-out view; with ``n_slabs > 1`` the
+    """Render + PSNR/L1 for one held-out view, the sky composited behind
+    the surfels when ``sky_params`` is given; with ``n_slabs > 1`` the
     view renders in that many row slabs (an exact crop each: the principal
     point moves up by the slab's first row), which bounds the duplicate
     stream's memory (``duplicate_capacity`` is then per slab). Returns
@@ -51,7 +55,12 @@ def _eval_view(state, cam, gt, bg, duplicate_capacity=None,
         res = render(camera, state, bg,
                      duplicate_capacity=duplicate_capacity,
                      device=state.device)
-        return res.render, bool(res.overflow), int(res.demand)
+        img = res.render
+        if sky_params is not None:
+            sky = render_sky(sky_params, camera.height, camera.width,
+                             camera.K, torch.linalg.inv(camera.w2c))
+            img = img + sky * (1.0 - res.rend_alpha)[..., None]
+        return img, bool(res.overflow), int(res.demand)
 
     if n_slabs <= 1:
         img, ovf, dem = render_rows(cam)
@@ -89,14 +98,13 @@ def evaluate_views(state, cameras, images, bg, sky_params=None,
                    max_views: int = 8, duplicate_capacity=None,
                    n_slabs: int = 1):
     """Mean held-out PSNR/L1 over up to ``max_views`` cameras, on the
-    state's device. A view whose duplicate stream overflows is rendered
-    again at a demand-sized capacity (kept for the later views), so no
-    truncated render is scored."""
-    if sky_params is not None:
-        raise NotImplementedError(
-            "the sky model is not ported to the PyTorch build yet: it comes "
-            "with the sky slice, item 10 (ROADMAP.md)")
+    state's device, with the sky composited when ``sky_params`` is given.
+    A view whose duplicate stream overflows is rendered again at a
+    demand-sized capacity (kept for the later views), so no truncated
+    render is scored."""
     dev = state.device
+    if sky_params is not None:
+        sky_params = sky_params.to(dev)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
     psnrs, l1s = [], []
     cap = duplicate_capacity
@@ -107,11 +115,11 @@ def evaluate_views(state, cameras, images, bg, sky_params=None,
         gt = torch.as_tensor(np.asarray(img, np.float32), device=dev)
         eff = cap if cap is not None else _default_slab_capacity(
             state.capacity, cam.width, cam.height, n_slabs)
-        p, l, ovf, dem = _eval_view(state, cam, gt, bg,
+        p, l, ovf, dem = _eval_view(state, cam, gt, bg, sky_params,
                                     duplicate_capacity=eff, n_slabs=n_slabs)
         if ovf:
             cap = max(round_capacity(dem, headroom=1.2), cap or 0)
-            p, l, _, _ = _eval_view(state, cam, gt, bg,
+            p, l, _, _ = _eval_view(state, cam, gt, bg, sky_params,
                                     duplicate_capacity=cap, n_slabs=n_slabs)
         psnrs.append(p)
         l1s.append(l)
@@ -128,17 +136,16 @@ def train_scene(scene, state: SurfelState, opt: OptimizationParams,
                 use_semantics: bool = False,
                 seed: int = 0, callback=None, logger=None,
                 eval_every: int = 0,
-                eval_max_views: int = 8, opt_state=None, device="cuda"):
+                eval_max_views: int = 8, opt_state=None, sky_opt_state=None,
+                device="cuda"):
     """Run the stage-1 loop on ``device`` (default the card; it raises
     without one unless ``device="cpu"``). Returns (state, sky_params,
-    reports). Pass ``opt_state`` from a loaded checkpoint to resume with
-    its Adam moments. Turns TF32 off for matmuls and cuDNN convolutions
-    (SSIM's blur), so the step computes in full float32.
+    reports); ``sky_params`` (a ``SkyParams``) is trained jointly and
+    updated in place. Pass ``opt_state``/``sky_opt_state`` from a loaded
+    checkpoint to resume with its Adam moments. Turns TF32 off for matmuls
+    and cuDNN convolutions (SSIM's blur, the sky's MLP), so the step
+    computes in full float32.
     """
-    if sky_params is not None:
-        raise NotImplementedError(
-            "the sky model is not ported to the PyTorch build yet: it comes "
-            "with the sky slice, item 10 (ROADMAP.md)")
     dev = resolve_device(device)
     strict_fp32()
     iterations = iterations or opt.iterations
@@ -159,6 +166,10 @@ def train_scene(scene, state: SurfelState, opt: OptimizationParams,
         bg, dtype=torch.float32, device=dev)
     opt_state = init_optimizer(state) if opt_state is None \
         else opt_state.to(dev)
+    if sky_params is not None:
+        sky_params = sky_params.to(dev)
+        sky_opt_state = adam_init(sky_params) if sky_opt_state is None \
+            else sky_opt_state.to(dev)
 
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev)
@@ -193,8 +204,9 @@ def train_scene(scene, state: SurfelState, opt: OptimizationParams,
         gt_sem = semantics[idx] if semantics is not None else None
         binning = bin_step(state, cams[idx], duplicate_capacity=dup_cap,
                            device=dev)
-        state, opt_state, metrics = train_step(
+        state, opt_state, sky_params, sky_opt_state, metrics = train_step(
             state, opt_state, cams[idx], images[idx], bg, iteration, opt,
+            sky_params=sky_params, sky_opt_state=sky_opt_state,
             gt_semantic=gt_sem,
             class_dist=iteration > opt.semantic_dist_from_iter,
             duplicate_capacity=dup_cap, binning=binning, device=dev)
@@ -248,7 +260,8 @@ def train_scene(scene, state: SurfelState, opt: OptimizationParams,
                          or iteration == iterations)):
                 test_psnr, test_l1 = evaluate_views(
                     state, scene.test_cameras, scene.test_images, bg,
-                    max_views=eval_max_views, duplicate_capacity=dup_cap)
+                    sky_params=sky_params, max_views=eval_max_views,
+                    duplicate_capacity=dup_cap)
             rep = TrainReport(iteration=iteration,
                               loss=float(metrics["loss"]),
                               psnr=float(metrics["psnr"]),

@@ -1,6 +1,7 @@
 """The stage-1 training step (counterpart of ``streetunveiler_tpu/train/
-step.py``): render + losses + backward + Adam update + densification
-statistics, eagerly, one call per step.
+step.py``): render + losses + backward + Adam update (surfels and the
+jointly trained sky) + densification statistics, eagerly, one call per
+step.
 
 The backward runs kernel K2 (the blend backward), the record-grad
 scatter, then autograd through the preprocess and the SH decode. The
@@ -23,7 +24,8 @@ from ..config import OptimizationParams
 from ..device import resolve_device
 from ..models.gaussians import (SurfelParams, SurfelState,
                                 add_densification_stats)
-from ..renderer import bin_camera, render
+from ..models.sky import SkyParams, render_sky
+from ..renderer import bin_camera, render, semantic_class_mask
 from ..scene.cameras import Camera
 from ..utils.semantics import CONCERNED_IND, NUM_CONCERNED
 from .losses import l1_loss, psnr, ssim
@@ -31,12 +33,12 @@ from .optim import AdamState, adam_init, adam_update
 from .schedule import expon_lr
 
 SEMANTIC_CLASS_WEIGHTS = (1.0, 1.0, 1.0, 1.0, 0.2, 1.0)  # sky down-weighted
-
-
-def _not_ported(what: str, slice_name: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch build yet: it comes with "
-        f"{slice_name} (ROADMAP.md)")
+SKY_LR = 1e-4            # the sky's own Adam: lr 1e-4, eps 1e-8
+SKY_EPS = 1e-8
+# the gated per-class distortion's classes: every concerned class but sky,
+# in class order (road, sidewalk, building, vegetation, vehicle)
+DIST_CLASSES = tuple(ci for ci in range(len(SEMANTIC_CLASS_WEIGHTS))
+                     if ci != CONCERNED_IND["sky"])
 
 
 def make_lrs(opt: OptimizationParams, iteration: int,
@@ -76,27 +78,32 @@ def stage1_loss(state: SurfelState, camera: Camera, gt_image, bg,
     ``gt_semantic`` [H, W] int class labels, with
     ``opt.enable_semantic_loss``, adds the semantic cross entropy: the
     one-hot classes ride the same blend as 6 extra payload channels
-    (nq = 12). The gated per-class distortion (``class_dist`` with the
-    semantic loss) and the sky (``sky_params``/``sky_image``) are not
-    ported yet and raise.
+    (nq = 12). With ``class_dist`` as well (the late phase, past
+    ``semantic_dist_from_iter``) the same blend runs one gated
+    transmittance chain per class but sky (G = 5) and the loss adds
+    λ_dist·Σ_g mean(class_dist_g). ``sky_params`` (a ``SkyParams``, trained
+    jointly) or a precomputed ``sky_image`` [H, W, 3] composites behind
+    the surfels: ``image = render + sky·(1 − α)``.
     """
     want_sem = gt_semantic is not None and opt.enable_semantic_loss
-    if want_sem and class_dist:
-        raise _not_ported("the per-class distortion (class_dist, gated "
-                          "chains in K1/K2)", "the late-phase semantic "
-                          "slice")
-    if sky_params is not None or sky_image is not None:
-        raise _not_ported("the sky model (sky_params/sky_image)",
-                          "the sky slice, item 10")
     active_sh = min(iteration // 1000, state.sh_degree)
     extra = (F.one_hot(state.semantics.long(), NUM_CONCERNED)
              .to(torch.float32) if want_sem else None)
+    gates = None
+    if want_sem and class_dist:
+        gates = torch.stack([semantic_class_mask(state, 1 << ci, reverse=True)
+                             for ci in DIST_CLASSES], dim=1)
     res = render(camera, state, bg, active_sh_degree=active_sh,
                  center2d_offset=center2d_offset,
                  duplicate_capacity=duplicate_capacity, extra_payload=extra,
-                 binning=binning, device=state.device)
+                 class_gates=gates, binning=binning, device=state.device)
 
     image = res.render
+    if sky_params is not None:
+        sky_image = render_sky(sky_params, camera.height, camera.width,
+                               camera.K, torch.linalg.inv(camera.w2c))
+    if sky_image is not None:
+        image = image + sky_image * (1.0 - res.rend_alpha)[..., None]
     ll1 = l1_loss(image, gt_image)
     lssim = ssim(image, gt_image)
     loss = (1.0 - opt.lambda_dssim) * ll1 + opt.lambda_dssim * (1.0 - lssim)
@@ -120,6 +127,9 @@ def stage1_loss(state: SurfelState, camera: Camera, gt_image, bg,
         probs = res.extra + sky_prior * (1.0 - res.rend_alpha)[..., None]
         sem_loss = semantic_ce_loss(probs, gt_semantic)
         loss = loss + opt.semantic_loss_ratio * sem_loss
+        if gates is not None:
+            loss = loss + opt.lambda_dist * torch.sum(
+                torch.mean(res.class_dist, dim=(0, 1)))
 
     with torch.no_grad():
         aux = dict(image=image.detach(), l1=ll1.detach(),
@@ -142,19 +152,23 @@ def bin_step(state: SurfelState, camera: Camera,
 
 def train_step(state: SurfelState, opt_state: AdamState, camera: Camera,
                gt_image, bg, iteration: int, opt: OptimizationParams,
-               sky_params=None, sky_image=None, gt_semantic=None,
-               class_dist: bool = False,
+               sky_params: SkyParams | None = None,
+               sky_opt_state: AdamState | None = None, sky_image=None,
+               gt_semantic=None, class_dist: bool = False,
                duplicate_capacity: int | None = None, binning=None,
                device="cuda"):
     """One optimisation step on ``device`` (default the card; it raises
-    without one unless ``device="cpu"``).
+    without one unless ``device="cpu"``): the surfels and, with
+    ``sky_params``, the sky trained jointly by its own Adam (lr 1e-4,
+    eps 1e-8; ``sky_opt_state`` defaults to fresh moments).
 
-    Returns (state, opt_state, metrics). The sky (``sky_params``,
-    ``sky_image``) is not ported yet and raises. The parameter tensors of ``state`` and the
-    moments of ``opt_state`` are updated IN PLACE (``adam_update``); the
-    densification statistics come back as new tensors in the new state.
-    ``metrics`` holds 0-d tensors on the device (reading one waits for the
-    step). ``binning``: a ``bin_step`` result for this state and camera.
+    Returns (state, opt_state, sky_params, sky_opt_state, metrics); the sky
+    pair is None when no sky is trained. The parameter tensors of ``state``
+    and ``sky_params`` and the moments of both Adam states are updated IN
+    PLACE (``adam_update``); the densification statistics come back as new
+    tensors in the new state. ``metrics`` holds 0-d tensors on the device
+    (reading one waits for the step). ``binning``: a ``bin_step`` result
+    for this state and camera.
     """
     dev = resolve_device(device)
     state = state.to(dev)
@@ -170,19 +184,35 @@ def train_step(state: SurfelState, opt_state: AdamState, camera: Camera,
     zeros2d = torch.zeros((state.capacity, 2), dtype=torch.float32,
                           device=dev, requires_grad=True)
     st = dataclasses.replace(state, params=SurfelParams(**leaves))
+    sky_leaves = None
+    if sky_params is not None:
+        sky_params = sky_params.to(dev)
+        sky_leaves = sky_params.map(
+            lambda t: t.detach().requires_grad_(True))
+        sky_opt_state = (adam_init(sky_params) if sky_opt_state is None
+                         else sky_opt_state.to(dev))
     loss, aux = stage1_loss(st, camera, gt_image, bg, iteration, opt,
-                            sky_params=sky_params, sky_image=sky_image,
+                            sky_params=sky_leaves, sky_image=sky_image,
                             gt_semantic=gt_semantic, class_dist=class_dist,
                             center2d_offset=zeros2d,
                             duplicate_capacity=duplicate_capacity,
                             binning=binning)
-    grads = torch.autograd.grad(loss, [leaves[n] for n in names] + [zeros2d])
-    screen_grads = grads[-1]
+    inputs = [leaves[n] for n in names] + [zeros2d]
+    if sky_leaves is not None:
+        inputs += list(sky_leaves.named_tensors().values())
+    grads = torch.autograd.grad(loss, inputs)
+    screen_grads = grads[len(names)]
 
     lrs = make_lrs(opt, iteration, state.spatial_scale)
-    params, opt_state = adam_update(SurfelParams(**dict(zip(names, grads))),
-                                    opt_state, state.params, lrs)
+    params, opt_state = adam_update(
+        SurfelParams(**dict(zip(names, grads[:len(names)]))), opt_state,
+        state.params, lrs)
     state = dataclasses.replace(state, params=params)
+    if sky_params is not None:
+        it = iter(grads[len(names) + 1:])
+        sky_grads = sky_params.map(lambda _: next(it))
+        sky_params, sky_opt_state = adam_update(
+            sky_grads, sky_opt_state, sky_params, SKY_LR, eps=SKY_EPS)
 
     # densification statistics, gated off after densify_until_iter
     track = iteration < opt.densify_until_iter
@@ -194,7 +224,7 @@ def train_step(state: SurfelState, opt_state: AdamState, camera: Camera,
                    psnr=aux["psnr"], n_alive=state.num_alive,
                    semantic=aux["semantic"], overflow=aux["overflow"],
                    demand=aux["demand"])
-    return state, opt_state, metrics
+    return state, opt_state, sky_params, sky_opt_state, metrics
 
 
 def init_optimizer(state: SurfelState) -> AdamState:

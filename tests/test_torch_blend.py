@@ -239,12 +239,15 @@ def test_empty_tiles_are_zero():
 
 
 def test_refusals(scene):
-    """Gated chains and a non-RGB colour width are refused; the backward
-    (K2's plain version here) runs and reaches the colours."""
+    """A non-RGB colour width is refused; gated chains run (with every
+    surfel in both classes, each class's distortion is the main one); the
+    backward (K2's plain version here) runs and reaches the colours."""
     targs, tw2c, tK, tst = to_torch(scene)
     gates = torch.ones((targs[0].shape[0], 2), dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        rasterize(*targs, tw2c, tK, tst, class_gates=gates)
+    out = rasterize(*targs, tw2c, tK, tst, class_gates=gates)
+    for g in range(2):
+        np.testing.assert_allclose(out.class_dist[..., g].numpy(),
+                                   out.distortion.numpy(), atol=5e-5)
     cols = targs[4].clone().requires_grad_(True)
     out = rasterize(*targs[:4], cols, tw2c, tK, tst)
     out.color.sum().backward()

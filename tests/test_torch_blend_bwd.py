@@ -157,8 +157,9 @@ def test_plain_k2_counts_kept_pairs(scene):
     args = (torch.as_tensor(recT), torch.as_tensor(off), tiles_x, tiles_y,
             settings, torch.as_tensor(acc), torch.as_tensor(lk),
             torch.as_tensor(dacc), 6)
-    got, kept = tkernel.blend_backward_plain(*args, tile_batch=4,
-                                             count_pairs=True)
+    got, counts = tkernel.blend_backward_plain(*args, tile_batch=4,
+                                               count_pairs=True)
+    kept = counts["kept"]
     np.testing.assert_array_equal(
         got.numpy(), tkernel.blend_backward_plain(*args).numpy())
     pix = torch.arange(tkernel.PIX)
@@ -175,12 +176,14 @@ def test_plain_k2_counts_kept_pairs(scene):
             settings.znear)
         lk_t = torch.as_tensor(lk[t, :, 0]).long()
         want += int(((a > 0.0) & (idx[:, None] <= lk_t[None, :])).sum())
-    assert 0 < kept == want
+    assert 0 < kept == want == counts["any_kept"]
+    assert counts["gated_kept"] == 0 and counts["evaluated"] > kept
 
 
 def test_blend_stream_backward_runs_k2_path_on_cpu(scene):
     """``blend_stream`` is differentiable: its backward is the plain K2 on
-    a CPU tensor (no launch), and it refuses gated chains."""
+    a CPU tensor (no launch); with gated chains the main chain's channels
+    are the ungated ones."""
     recT, off, tiles_x, tiles_y, _, _, _ = _jax_stream(scene, 6, 1e-4)
     settings = RasterizeSettings(width=64, height=48)
     r = torch.as_tensor(recT).requires_grad_(True)
@@ -193,9 +196,13 @@ def test_blend_stream_backward_runs_k2_path_on_cpu(scene):
                                         tiles_x, tiles_y, settings,
                                         acc.detach(), lk, dacc, 6)
     np.testing.assert_array_equal(g.numpy(), want.numpy())
-    assert cuda_lib.launch_counts == {"blend_fwd": 0, "blend_bwd": 0,
-                                      "expand": 0}
+    assert not any(cuda_lib.launch_counts.values())
     assert not lk.requires_grad
-    with pytest.raises(NotImplementedError):
-        tkernel.blend_stream(r, torch.as_tensor(off), tiles_x, tiles_y,
-                             settings, 6, n_gates=2)
+    # gated chains read their class bitmask from the row after the
+    # payload: append one
+    r2 = torch.cat([r.detach(), torch.full_like(r[:1], 3.0)])
+    acc2, lk2 = tkernel.blend_stream(r2, torch.as_tensor(off), tiles_x,
+                                     tiles_y, settings, 6, n_gates=2)
+    assert acc2.shape[-1] == 12 + 8
+    np.testing.assert_array_equal(acc2[..., :12].numpy(), acc.detach().numpy())
+    np.testing.assert_array_equal(lk2.numpy(), lk.numpy())

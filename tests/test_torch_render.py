@@ -180,8 +180,7 @@ def test_cpu_render_launches_no_kernel(port_state, cameras):
     _, tc = cameras
     cuda_lib.reset_launch_counts()
     renderer.render(tc, port_state, np.zeros(3, np.float32), device="cpu")
-    assert cuda_lib.launch_counts == {"blend_fwd": 0, "blend_bwd": 0,
-                                      "expand": 0}
+    assert not any(cuda_lib.launch_counts.values())
 
 
 GUARD = r"""
@@ -199,7 +198,8 @@ assert len(names) >= 30, names
 for mod in ("train.step", "train.loop", "train.losses", "train.optim",
             "train.schedule", "train.checkpoint", "cli.train", "cli.common",
             "scene.scene", "scene.readers.synthetic", "scene.readers.basic",
-            "config", "utils.semantics", "utils.logging"):
+            "config", "utils.semantics", "utils.logging", "models.sky",
+            "models.mlp"):
     assert "streetunveiler_torch." + mod in names, mod
 import torch
 if not torch.cuda.is_available():

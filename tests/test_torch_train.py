@@ -5,11 +5,15 @@
 * ``densify_and_prune`` fed the same split samples (including the
   full-capacity case of ``tests/test_train.py:100``), ``reset_opacity``
   and ``prune_mask``: equal;
-* ``stage1_loss`` and its gradients, with and without the semantic loss;
-* one ``train_step`` from the same state;
+* ``stage1_loss`` and its gradients, with and without the semantic loss,
+  and in the late phase (the gated per-class distortion and the sky);
+* one ``train_step`` from the same state, photometric and late-phase
+  (semantics, class_dist, the sky trained jointly);
 * port only: ``train_scene`` on a tiny synthetic street raises PSNR and
-  bumps an absurd duplicate capacity; the checkpoint round trip with the
-  JAX package's ``splatting.npz``; the training CLI on the CPU.
+  bumps an absurd duplicate capacity, and reaches the late phase with the
+  sky; the checkpoint round trip with the JAX package's ``splatting.npz``,
+  the sky included; the training CLI on the CPU, with ``--sky
+  --semantics`` through the late phase and a resume.
 
 Gradients: ``tests/test_kernel.py:86`` (atol 2e-4·max|g|, rtol 1e-3);
 losses rtol 1e-4 (the blend and SSIM sum in another order).
@@ -28,6 +32,7 @@ import torch
 from streetunveiler_tpu.config import OptimizationParams as JOpt
 from streetunveiler_tpu.config import load_config as jload_config
 from streetunveiler_tpu.models import gaussians as jgs
+from streetunveiler_tpu.models import sky as jsky
 from streetunveiler_tpu.renderer import render as jrender
 from streetunveiler_tpu.scene.cameras import make_camera as jmake_camera
 from streetunveiler_tpu.train import checkpoint as jckpt
@@ -312,9 +317,10 @@ def test_train_step_matches_jax(setup):
 
     p0 = {k: getattr(tstate.params, k).clone() for k in PARAMS}
     t0 = dataclasses.replace(tstate, params=SurfelParams(**p0))
-    t2, ts, tm = tstep.train_step(
+    t2, ts, tsky, tsky_opt, tm = tstep.train_step(
         t0, tstep.init_optimizer(t0), tcam(cams[0]), gt, bg, it, opt,
         device="cpu")
+    assert tsky is None and tsky_opt is None
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                rtol=1e-4)
     assert ts.step == 1 and int(tm["n_alive"]) == int(jm["n_alive"])
@@ -386,8 +392,9 @@ def test_checkpoint_roundtrip_with_jax(setup, tmp_path):
                      mu=jax.tree.map(lambda x: x + 0.5, jo.mu),
                      nu=jax.tree.map(lambda x: x + 0.25, jo.nu))
     jckpt.save_checkpoint(str(tmp_path / "j"), jstate, jo, 123)
-    st, ost, it = tckpt.load_checkpoint(str(tmp_path / "j"), device="cpu")
-    assert it == 123 and ost.step == 7
+    st, ost, it, sky, skyopt = tckpt.load_checkpoint(str(tmp_path / "j"),
+                                                     device="cpu")
+    assert it == 123 and ost.step == 7 and sky is None and skyopt is None
     _assert_states_equal(st, jstate)
     for k in PARAMS:
         np.testing.assert_array_equal(np_(getattr(ost.mu, k)),
@@ -404,7 +411,8 @@ def test_checkpoint_roundtrip_with_jax(setup, tmp_path):
 def test_cli_train_on_cpu(tmp_path):
     """``python -m streetunveiler_torch.cli.train --device cpu`` at a tiny
     size: cfg_args.json readable by the JAX package, cameras.json, the
-    PLY and the checkpoint; unported options are refused."""
+    PLY and the checkpoint; unported options are refused (the sky is
+    ported: ``test_cli_train_sky_semantics_late_phase``)."""
     from streetunveiler_torch.cli import train as cli_train
     out = str(tmp_path / "model")
     state, reports = cli_train.main([
@@ -421,13 +429,258 @@ def test_cli_train_on_cpu(tmp_path):
         assert len(json.load(f)) == 3
     assert os.path.exists(os.path.join(out, "point_cloud", "iteration_6",
                                        "point_cloud.ply"))
-    st, _, it = tckpt.load_checkpoint(
+    st, _, it, sky, _ = tckpt.load_checkpoint(
         os.path.join(out, "checkpoint", "iteration_6"), device="cpu")
-    assert it == 6
+    assert it == 6 and sky is None
     np.testing.assert_array_equal(np_(st.params.xyz), np_(state.params.xyz))
-    for flag in (["--sky"], ["--tile_devices", "2"], ["--profile"]):
+    for flag in (["--tile_devices", "2"], ["--profile"]):
         with pytest.raises(SystemExit, match="not ported"):
             cli_train.main(["--model_path", out, "--device", "cpu"] + flag)
     with pytest.raises(NotImplementedError, match="reader"):
         cli_train.main(["--model_path", out, "--device", "cpu", "--scene",
                         "colmap"])
+
+
+# ------------------------------------------------------------ late phase
+
+LATE_IT = 31_001   # past semantic_dist_from_iter, normal consistency and
+#                    shrink: every stage-1 loss term on
+
+
+def to_port_sky(jsky_params):
+    return convert.sky_from_arrays(jckpt._flatten(jsky_params, "sky"),
+                                   device="cpu")
+
+
+@pytest.fixture(scope="module")
+def sky_pair():
+    jp = jsky.init_sky(jax.random.PRNGKey(5))
+    return jp, to_port_sky(jp)
+
+
+def _late_jax_loss(jstate, cams, gt, gt_sem, bg):
+    def jloss(params, off, sky):
+        st = dataclasses.replace(jstate, params=params)
+        return jstep.stage1_loss(st, jcam(cams[0]), jnp.asarray(gt),
+                                 jnp.asarray(bg), LATE_IT, JOpt(),
+                                 sky_params=sky,
+                                 gt_semantic=jnp.asarray(gt_sem),
+                                 class_dist=True, center2d_offset=off,
+                                 interpret=True)
+    return jloss
+
+
+def test_late_stage1_loss_and_grads_match_jax(setup, sky_pair):
+    """The late-phase loss (semantics, the gated per-class distortion over
+    the 5 classes but sky, the sky composited) and its gradients to the
+    surfels, ``center2d_offset`` and every sky parameter."""
+    jstate, tstate, cams, gt, gt_sem, bg = setup
+    jsp, tsp = sky_pair
+    (jl, jaux), jgrads = jax.value_and_grad(
+        _late_jax_loss(jstate, cams, gt, gt_sem, bg), argnums=(0, 1, 2),
+        has_aux=True)(jstate.params, jnp.zeros((jstate.capacity, 2)), jsp)
+
+    leaves = {k: getattr(tstate.params, k).clone().requires_grad_(True)
+              for k in PARAMS}
+    off = torch.zeros((tstate.capacity, 2), requires_grad=True)
+    sky = tsp.map(lambda t: t.clone().requires_grad_(True))
+    st = dataclasses.replace(tstate, params=SurfelParams(**leaves))
+    opt = OptimizationParams()
+    tl, taux = tstep.stage1_loss(st, tcam(cams[0]), torch.as_tensor(gt),
+                                 torch.as_tensor(bg), LATE_IT, opt,
+                                 sky_params=sky,
+                                 gt_semantic=torch.as_tensor(gt_sem),
+                                 class_dist=True, center2d_offset=off)
+    sky_named = sky.named_tensors()
+    grads = torch.autograd.grad(tl, [leaves[k] for k in PARAMS] + [off]
+                                + list(sky_named.values()))
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-4)
+    for k in ("l1", "ssim", "psnr", "semantic"):
+        np.testing.assert_allclose(float(taux[k]), float(jaux[k]),
+                                   rtol=1e-4, atol=1e-7, err_msg=k)
+    want = {k: getattr(jgrads[0], k) for k in PARAMS}
+    want["center2d_offset"] = jgrads[1]
+    want.update({"sky" + k: v
+                 for k, v in jckpt._flatten(jgrads[2], "").items()})
+    got = dict(zip(list(PARAMS) + ["center2d_offset"]
+                   + ["sky" + k for k in sky_named], grads))
+    assert_grads_close(got, want, want)
+    # the per-class distortion is in the loss
+    with torch.no_grad():
+        t_off, _ = tstep.stage1_loss(
+            tstate, tcam(cams[0]), torch.as_tensor(gt),
+            torch.as_tensor(bg), LATE_IT, opt, sky_params=tsp,
+            gt_semantic=torch.as_tensor(gt_sem), class_dist=False)
+    assert float(tl.detach()) > float(t_off)
+
+
+def test_late_train_step_matches_jax(setup, sky_pair):
+    """One late-phase step (semantics, class_dist, the sky trained jointly)
+    from the same state: loss, updated surfel parameters and updated sky
+    parameters, at ``test_train_step_matches_jax``'s tolerance (Adam's
+    first step moves each entry by about ±lr·sign(g): compared where
+    |g_ref| > 1e-3·max|g_ref|, bounded by 2·lr elsewhere)."""
+    jstate, tstate, cams, gt, gt_sem, bg = setup
+    jsp, tsp = sky_pair
+    jg, _, jgs = jax.grad(
+        lambda *a: _late_jax_loss(jstate, cams, gt, gt_sem, bg)(*a)[0],
+        argnums=(0, 1, 2))(jstate.params, jnp.zeros((jstate.capacity, 2)),
+                           jsp)
+    jopt, opt = JOpt(), OptimizationParams()
+    j2, _, jsky2, jskyopt2, jm = jstep.train_step(
+        jstate, jstep.init_optimizer(jstate), jcam(cams[0]), jnp.asarray(gt),
+        jnp.asarray(bg), jnp.asarray(LATE_IT), jopt, sky_params=jsp,
+        sky_opt_state=joptim.adam_init(jsp),
+        gt_semantic=jnp.asarray(gt_sem), class_dist=True, interpret=True)
+
+    p0 = {k: getattr(tstate.params, k).clone() for k in PARAMS}
+    t0 = dataclasses.replace(tstate, params=SurfelParams(**p0))
+    t2, _, tsky2, tskyopt2, tm = tstep.train_step(
+        t0, tstep.init_optimizer(t0), tcam(cams[0]), gt, bg, LATE_IT, opt,
+        sky_params=tsp.map(torch.clone), gt_semantic=gt_sem,
+        class_dist=True, device="cpu")
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=1e-4)
+    assert tskyopt2.step == 1
+    lrs = tstep.make_lrs(opt, LATE_IT, float(tstate.spatial_scale))
+    pairs = [(np_(getattr(t2.params, k)), np.asarray(getattr(j2.params, k)),
+              np.asarray(getattr(jg, k)), float(getattr(lrs, k)), k)
+             for k in PARAMS]
+    jsky_new = jckpt._flatten(jsky2, "")
+    jsky_g = jckpt._flatten(jgs, "")
+    pairs += [(np_(t), jsky_new[k], jsky_g[k], tstep.SKY_LR, "sky" + k)
+              for k, t in tsky2.named_tensors().items()]
+    for a, b, g, lr, name in pairs:
+        g = np.abs(g)
+        big = g > 1e-3 * g.max()
+        np.testing.assert_allclose(a[big], b[big], rtol=0,
+                                   atol=1e-6 + 0.02 * lr, err_msg=name)
+        assert np.abs(a - b).max() <= 2 * lr + 1e-6, name
+    # the sky moved
+    assert any(float((t - t0).abs().max()) > 0 for t, t0 in zip(
+        tsky2.named_tensors().values(), tsp.named_tensors().values()))
+
+
+def test_checkpoint_with_sky_roundtrip_with_jax(setup, tmp_path):
+    """A JAX ``splatting.npz`` with a sky and its Adam state loads in the
+    port, and the port's loads back in the JAX package; the render-time
+    sky reader finds it."""
+    jstate, _, _, _, _, _ = setup
+    jo = jstep.init_optimizer(jstate)
+    jp = jsky.init_sky(jax.random.PRNGKey(1))
+    jso = joptim.adam_init(jp)
+    jso = jso._replace(step=jnp.asarray(3, jnp.int32),
+                       mu=jax.tree.map(lambda x: x + 0.5, jso.mu),
+                       nu=jax.tree.map(lambda x: x + 0.25, jso.nu))
+    jckpt.save_checkpoint(str(tmp_path / "m" / "checkpoint" / "iteration_9"),
+                          jstate, jo, 9, sky_params=jp, sky_opt_state=jso)
+    st, ost, it, sky, skyopt = tckpt.load_checkpoint(
+        str(tmp_path / "m" / "checkpoint" / "iteration_9"), device="cpu")
+    assert it == 9 and skyopt.step == 3
+    _assert_states_equal(st, jstate)
+    want = {**jckpt._flatten(jp, "sky"), **jckpt._flatten(jso, "skyopt")}
+    got = {"sky" + k: t for k, t in sky.named_tensors().items()}
+    for part in ("mu", "nu"):
+        got.update({f"skyopt.{part}{k}": t for k, t in
+                    getattr(skyopt, part).named_tensors().items()})
+    assert set(got) == set(want) - {"skyopt.step"}
+    for k, t in got.items():
+        np.testing.assert_array_equal(np_(t), want[k], err_msg=k)
+    reread = tckpt.load_sky_for_iteration(str(tmp_path / "m"), 9,
+                                          device="cpu")
+    np.testing.assert_array_equal(np_(reread.mlp_w[0]), np.asarray(jp.mlp_w[0]))
+    assert tckpt.load_sky_for_iteration(str(tmp_path / "m"), 8,
+                                        device="cpu") is None
+    tckpt.save_checkpoint(str(tmp_path / "t"), st, ost, 10, sky_params=sky,
+                          sky_opt_state=skyopt)
+    _, _, it2, jsky2, jso2 = jckpt.load_checkpoint(
+        str(tmp_path / "t"), jstate, jo, sky_template=jp,
+        sky_opt_template=jso)
+    assert it2 == 10 and int(jso2.step) == 3
+    for k, v in jckpt._flatten(jsky2, "sky").items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+    # a checkpoint without a sky reads as None
+    tckpt.save_checkpoint(str(tmp_path / "n"), st, ost, 11)
+    assert tckpt.load_checkpoint(str(tmp_path / "n"),
+                                 device="cpu")[3:] == (None, None)
+
+
+def test_train_scene_late_phase_with_sky(tmp_path):
+    """``train_scene`` with semantics and the sky on a tiny synthetic
+    street, with the late phase from iteration 10 of 30: the gated
+    per-class distortion runs, the sky trains, nothing goes non-finite and
+    the training views' PSNR (sky composited) rises."""
+    from streetunveiler_torch.models.sky import init_sky
+    from streetunveiler_torch.scene.readers import make_synthetic_street
+    from streetunveiler_torch.scene.scene import Scene
+    from streetunveiler_torch.train import loop
+
+    info = make_synthetic_street(n_points=300, n_cameras=3, width=48,
+                                 height=32, focal=35.0, seed=5, device="cpu")
+    scene = Scene(info, model_path=str(tmp_path), device="cpu")
+    state = scene.create_state(capacity=512)
+    bg = torch.tensor(scene.background)
+    sky = init_sky(torch.Generator().manual_seed(0), device="cpu")
+    sky0 = sky.map(torch.clone)
+    p0, _ = loop.evaluate_views(state, scene.train_cameras,
+                                scene.train_images, bg, sky_params=sky)
+    opt = OptimizationParams(densify_from_iter=10**9,
+                             semantic_dist_from_iter=10,
+                             normal_consist_from_iter=0,
+                             prune_from_iter=10**9)
+    calls = []
+    orig = loop.train_step
+
+    def spy(*a, **kw):
+        calls.append((a[5], kw["class_dist"], kw["sky_params"] is not None,
+                      kw["gt_semantic"] is not None))
+        return orig(*a, **kw)
+
+    loop.train_step = spy
+    try:
+        state2, sky2, reps = loop.train_scene(
+            scene, state, opt, sky_params=sky, bg=bg, iterations=30,
+            log_every=10, use_semantics=True, device="cpu")
+    finally:
+        loop.train_step = orig
+    assert [c[1] for c in calls] == [it > 10 for it in range(1, 31)]
+    assert all(c[2] and c[3] for c in calls)
+    assert all(np.isfinite(r.loss) for r in reps)
+    assert all(bool(torch.isfinite(t).all())
+               for t in sky2.named_tensors().values())
+    assert float((sky2.mlp_b[-1] - sky0.mlp_b[-1]).abs().max()) > 0
+    p1, _ = loop.evaluate_views(state2, scene.train_cameras,
+                                scene.train_images, bg, sky_params=sky2)
+    assert p1 > p0 + 1.0, (p0, p1)
+
+
+def test_cli_train_sky_semantics_late_phase(tmp_path):
+    """The CLI with ``--sky --semantics`` and a compressed schedule that
+    reaches the late phase: the checkpoint carries the sky, and a resume
+    from it trains on with that sky."""
+    from streetunveiler_torch.cli import train as cli_train
+    out = str(tmp_path / "model")
+    common = ["--model_path", out, "--device", "cpu", "--sky", "--semantics",
+              "--log_every", "4", "--synthetic_points", "300",
+              "--synthetic_cameras", "3", "--synthetic_width", "48",
+              "--synthetic_height", "32", "--synthetic_focal", "30",
+              "--semantic_dist_from_iter", "4"]
+    state, reports = cli_train.main(common + ["--iterations", "8"])
+    assert [r.iteration for r in reports] == [4, 8]
+    st, _, it, sky, _ = tckpt.load_checkpoint(
+        os.path.join(out, "checkpoint", "iteration_8"), device="cpu")
+    assert it == 8 and sky is not None
+    np.testing.assert_array_equal(np_(st.params.xyz), np_(state.params.xyz))
+    fresh = tsky_init(0)
+    assert float((sky.mlp_b[-1] - fresh.mlp_b[-1]).abs().max()) > 0
+    state2, reports2 = cli_train.main(common + ["--iterations", "12",
+                                                "--start_iteration", "8"])
+    assert [r.iteration for r in reports2] == [12]
+    sky12 = tckpt.load_sky_for_iteration(out, 12, device="cpu")
+    assert float((sky12.mlp_b[-1] - sky.mlp_b[-1]).abs().max()) > 0
+    assert np.isfinite(reports2[-1].loss)
+
+
+def tsky_init(seed):
+    from streetunveiler_torch.models.sky import init_sky
+    return init_sky(torch.Generator().manual_seed(seed), device="cpu")
