@@ -21,7 +21,15 @@ drives the two paths of the port on the 300k-surfel street scene at
   ``reference_small_gated``, ``k1_vs_plain_gated_*``,
   ``k2_vs_plain_gated_*``, ``train_late_path``, ``train_late_time``,
   ``train_late_profile``), then the CLI with ``--semantics --sky``
-  through a compressed schedule (``train_scene_synthetic_late``).
+  through a compressed schedule (``train_scene_synthetic_late``);
+* the measurement tools (phase group 9, ``streetunveiler_torch/tools/``):
+  every variant of the bisection kernels T1 (K1's) and T2 (K2's), at the
+  photometric (nq 6) and late (nq 12, G 5) configurations, against its
+  plain version on a dense-occlusion stack, ``full`` bit for bit against
+  the production K1/K2 at full width, then every variant timed on the
+  main path's streams; the micro-probes T3 (``micro_reduce``) and T4
+  (``micro_prefix``) against their plain versions and timed at the TPU
+  tools' sizes.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last two lines are the kernels table and
@@ -60,7 +68,7 @@ TRAIN_STEPS = 20
 LATE_ITER0 = 31_001  # the late phase: past semantic_dist_from_iter,
 #                      normal_consist_from_iter and shrinking_from_iter
 G_LATE = 5           # gated chains of the late loss: every class but sky
-W, H, FOCAL, N_SURFELS = 1920, 1280, 1000.0, 300_000
+W, H, FOCAL, N_SURFELS = 1920, 1280, 1000.0, 300_000   # tools/street.py
 
 # the tolerances of tests/test_kernel.py, per accumulator channel
 TOL_PAYLOAD, TOL_ALPHA, TOL_DEPTH, TOL_MOMENT, TOL_MEDIAN = \
@@ -78,54 +86,6 @@ GRAD_ATOL_REL, GRAD_RTOL, ROW_TOL_REL = 2e-4, 1e-3, 1e-3
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def build_scene(n, seed=0):
-    """The street scene of ``bench.py``: ground carpet + facade walls +
-    clutter, splats projecting to ~4-10 px at f=1000."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    n_g, n_w = n // 2, n // 3
-    n_c = n - n_g - n_w
-    ground = np.stack([rng.uniform(-30, 30, n_g), np.full(n_g, 2.0),
-                       rng.uniform(2, 80, n_g)], 1)
-    walls = np.stack([np.where(rng.random(n_w) < 0.5, -12.0, 12.0)
-                      + rng.normal(0, 0.3, n_w),
-                      rng.uniform(-8, 2, n_w), rng.uniform(2, 80, n_w)], 1)
-    clutter = np.stack([rng.uniform(-10, 10, n_c), rng.uniform(-3, 2, n_c),
-                        rng.uniform(3, 60, n_c)], 1)
-    pts = np.concatenate([ground, walls, clutter]).astype(np.float32)
-    depths = pts[:, 2]
-    scales = (rng.uniform(3, 8, (n, 1)) * depths[:, None] / 1000.0
-              ).astype(np.float32).repeat(2, 1)
-    quats = rng.normal(size=(n, 4)).astype(np.float32)
-    opac = rng.uniform(0.3, 0.95, n).astype(np.float32)
-    cols = rng.uniform(0, 1, (n, 3)).astype(np.float32)
-    sem = np.empty(n, np.int32)
-    sem[:n_g] = np.where(np.abs(ground[:, 0]) > 9.0, 1, 0)
-    sem[n_g:n_g + n_w] = 2
-    sem[n_g + n_w:] = np.where((clutter[:, 0] // 4).astype(int) % 2 == 0,
-                               5, 3)
-    return pts, scales, quats, opac, cols, sem
-
-
-def street_state(seed=0):
-    """SurfelState of the street scene, SH degree 3: DC from the colors,
-    the rest ~ N(0, 0.05) from the seed."""
-    import numpy as np
-    from streetunveiler_torch.convert import state_from_arrays
-    from streetunveiler_torch.ops.sh import rgb_to_sh
-    pts, scales, quats, opac, cols, sem = build_scene(N_SURFELS, seed)
-    n = pts.shape[0]
-    rng = np.random.default_rng(seed + 1)
-    z = np.zeros(n, np.float32)
-    return state_from_arrays(dict(
-        xyz=pts, features_dc=rgb_to_sh(cols)[:, None, :],
-        features_rest=rng.normal(0, 0.05, (n, 15, 3)).astype(np.float32),
-        scaling=np.log(scales), rotation=quats,
-        opacity=np.log(opac / (1.0 - opac))[:, None],
-        semantics=sem, alive=np.ones(n, bool), max_radii2d=z, grad_accum=z,
-        denom=z, spatial_scale=np.float32(30.0)), device="cuda")
 
 
 def small_scene(torch, n=300, seed=0, w=64, h=48, f=50.0):
@@ -390,8 +350,8 @@ def k2_vs_plain(torch, kernel, state, cam, gt, gt_sem, bg, cap, opt, nq):
     if a[8] != nq:
         raise AssertionError(f"the loss ran the blend at nq={a[8]}, "
                              f"not {nq}")
-    return check_k2(torch, kernel, a, g_k2, g_plain, f"k2_vs_plain_nq{nq}",
-                    loss=float(loss))
+    return dict(check_k2(torch, kernel, a, g_k2, g_plain,
+                         f"k2_vs_plain_nq{nq}", loss=float(loss)), args=a)
 
 
 def gated_vs_plain(torch, kernel, loss_fn, case):
@@ -846,7 +806,7 @@ def late_phases(torch, state, cam, cap, bg, gt, gt_sem):
                                                  k1_dense["max_abs_err"])),
                 k2=dict(k2_full, max_abs_err=max(k2_full["max_abs_err"],
                                                  k2_dense["max_abs_err"])),
-                launches=launches)
+                launches=launches, args=a)
 
 
 def bench_fwd_bwd(torch, state, cam, iters=10):
@@ -895,24 +855,47 @@ def bench_fwd_bwd(torch, state, cam, iters=10):
 
 
 def ptxas_summary(log):
-    """Registers and spills of the kernel instantiations the paths run
-    (every K1, K2 at nq 6, 9 and 12, K2 gated at (6, 3) and (12, 5), K3),
-    from the build log's ptxas lines."""
+    """Registers and spills from the build log's ptxas lines: the
+    production instantiations the paths run (every K1, K2 at nq 6, 9 and
+    12, K2 gated at (6, 3) and (12, 5), K3), and every instantiation of the
+    measurement tools (T1<G,variant>, T2<nq,G,variant>, T3 and T4 kernels),
+    named by the translation unit that built them."""
     import re
+    from streetunveiler_torch.tools import bisect_bwd, bisect_fwd
     keep = {"K1<%d>" % g for g in range(7)} | {
         "K2<6,0>", "K2<9,0>", "K2<12,0>", "K2<6,3>", "K2<12,5>", "K3"}
-    out, name = {}, None
+    out, name, unit = {}, None, ""
     for line in log.splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"blend_(fwd|bwd)_kernelILi(\d+)E(?:Li(\d+)E)?",
-                          line)
-            if m and m.group(1) == "fwd":
-                name = f"K1<{m.group(2)}>"
-            elif m:
-                name = f"K2<{m.group(2)},{m.group(3)}>"
+        if line.startswith("== nvcc "):
+            unit = line.split()[2]
+        elif "Compiling entry function" in line:
+            ints = lambda m: [int(x) for x in m.groups()]
+            fwd = re.search(r"blend_fwd_kernelILi(\d+)ELi(\d+)E", line)
+            bwd = re.search(r"blend_bwd_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                            line)
+            # the kernel's name follows its length in the mangled name
+            probe = re.search(r"\d(reduce_[a-z]+|prefix_[a-z]+)(?:ILi(\d+)E)?",
+                              line)
+            if fwd and unit.startswith("bisect"):
+                g, v = ints(fwd)
+                name = f"T1<{g},{bisect_fwd.VARIANTS[v]}>"
+            elif fwd:
+                name = f"K1<{ints(fwd)[0]}>"
+            elif bwd and unit.startswith("bisect"):
+                q, g, v = ints(bwd)
+                name = f"T2<{q},{g},{bisect_bwd.VARIANTS[v]}>"
+            elif bwd:
+                q, g, _ = ints(bwd)
+                name = f"K2<{q},{g}>"
+            elif probe:
+                tag = "T3" if unit.startswith("micro_reduce") else "T4"
+                name = f"{tag} {probe.group(1)}" + (
+                    f"<{probe.group(2)}>" if probe.group(2) else "")
             else:
                 name = "K3" if "expand_kernel" in line else None
-        elif name in keep and ("spill" in line or "registers" in line):
+            if name and not name.startswith("T") and name not in keep:
+                name = None
+        elif name and ("spill" in line or "registers" in line):
             out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
     return out
 
@@ -1049,6 +1032,370 @@ def train_scene_synthetic(torch, late=False):
                              "back")
 
 
+# ---- 9. the measurement tools (streetunveiler_torch/tools/)
+# T1/T2 variants against their plain versions: per channel (record row)
+# the largest error over that channel's (row's) largest magnitude, at
+# least 1 for T1's non-floor channels; the floors are 1e-30-scaled values
+# held relative to their own size. full_nopair's stand-in α is unbounded,
+# so its sums reach ~1e7 and cancel. T1's median is the depth of the last
+# pair before T falls to 0.5; the kernel's running product and the plain
+# version's chunked cumprod round apart, so at a knife-edge pixel the
+# median moves to a neighbouring pair: such pixels count with the lk
+# mismatches against FLIP_FRACTION (as K1's knife-edge of early
+# termination) and the channels are held on the rest. A stand-in whose α
+# is tiny (full_nopair: ~1e-5) lowers T by about the products' rounding
+# difference per pair, so its medians flip most.
+VARIANT_TOL, NOPAIR_TOL = 1e-4, 1e-3
+# T3/T4 against their plain versions, per output column (channel) relative
+# to its largest magnitude: f32 sums in another order; the tensor-core
+# modes' operands are rounded alike on both sides, but the tensor core
+# accumulates in its own order and rounding
+MICRO_TOL_F32, MICRO_TOL_MMA = 1e-4, 1e-3
+T4_OPS_PER_PAIR = 50   # csrc/micro_prefix.cu's serial mode, counted:
+#   the fake pair ~27, the epilogue ~17, the four running sums 6
+TOOL_REPS = 10
+
+
+def dense_streams(torch):
+    """The dense-occlusion stack of ``dense_gated_loss`` (1,500 mostly
+    opaque surfels at 128×96, the nearest third class 0, the rest classes
+    1-4 at random), binned as ``rasterize`` does: the photometric records
+    (nq 6) and the late ones (nq 12 with the one-hot classes, G = 5 gates).
+    Returns {G: blend arguments}."""
+    import numpy as np
+    import torch.nn.functional as F
+    from streetunveiler_torch.ops.rasterizer import (RasterizeSettings,
+                                                     kernel, tiles)
+    from streetunveiler_torch.ops.rasterizer.api import (
+        _gather_records, default_duplicate_capacity, encode_extra)
+    from streetunveiler_torch.ops.rasterizer.preprocess import \
+        preprocess_surfels
+    rng = np.random.default_rng(0)
+    n, w, h, f = 1500, 128, 96, 110.0
+    z = rng.uniform(2.0, 30.0, n)
+    means = np.stack([rng.uniform(-2.5, 2.5, n), rng.uniform(-2, 2, n), z],
+                     1)
+    cls = np.where(z < np.quantile(z, 1 / 3), 0, rng.integers(1, 5, n))
+    cuda = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                     device="cuda")
+    args = [cuda(means), cuda(rng.uniform(0.2, 0.9, (n, 2))),
+            cuda(rng.normal(size=(n, 4))), cuda(rng.uniform(0.5, 0.98, n)),
+            cuda(rng.uniform(0, 1, (n, 3)))]
+    st = RasterizeSettings(width=w, height=h)
+    K = cuda([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]])
+    sur = preprocess_surfels(*args, cuda(np.eye(4)), K, st)
+    b = tiles.bin_surfels_stream(sur.center2d, sur.ext, sur.depth,
+                                 sur.valid, w, h, kernel.TILE_W,
+                                 kernel.TILE_H,
+                                 default_duplicate_capacity(n, w, h),
+                                 cull=sur.cull)
+    if bool(b.overflow):
+        raise AssertionError("the dense stack overflowed its capacity")
+    cls_t = torch.as_tensor(cls, device="cuda")
+    out = {}
+    for late in (False, True):
+        extra = F.one_hot(cls_t, 6).float() if late else None
+        gates = torch.stack([cls_t == g for g in range(5)], 1) if late \
+            else None
+        pack, n_gates = encode_extra(extra, gates)
+        recT = _gather_records(kernel.pack_geometry_T(sur, n, pack),
+                               b.sorted_surfel)
+        out[n_gates] = (recT, b.tile_offsets, b.tiles_x, b.tiles_y, st,
+                        12 if late else 6, n_gates)
+    return out
+
+
+def rel_err(got, want, dims, floor):
+    """Largest |got − want| over ``dims`` relative to max(|want|, floor),
+    per remaining index; returns the largest."""
+    scale = want.abs().amax(dim=dims).clamp(min=max(floor, 1e-38))
+    return float(((got - want).abs().amax(dim=dims) / scale).max())
+
+
+def t1_vs_plain(torch, bf, k1_args):
+    """Every T1 variant against its plain version on ``k1_args``: lk,
+    every lk_g and the median (within TOL_MEDIAN) on all but FLIP_FRACTION
+    of pixels, each channel within its tolerance over the pixels where they
+    all agree (mismatch_frac counts the rest). Each entry also holds the
+    median flips, the channel of the largest error, the largest absolute
+    error and the pairs the plain version evaluated."""
+    nq, n_gates = k1_args[5], k1_args[6]
+    ch = nq + 6
+    out, ok = {}, True
+    for v in bf.VARIANTS:
+        acc, lk = bf.bisect_forward_cuda(v, *k1_args)
+        want_acc, want_lk, count = bf.bisect_forward_plain(
+            v, *k1_args, count_pairs=True)
+        torch.cuda.synchronize()
+        same = torch.ones(acc.shape[:2], dtype=torch.bool, device="cuda")
+        if lk is not None:
+            same &= (lk == want_lk)[..., 0]
+        floor = v in bf.FLOORS
+        for g in range(0 if floor else n_gates):   # a floor has no lk_g
+            same &= acc[..., ch + 4 * g + 3] == want_acc[..., ch + 4 * g + 3]
+        med = nq + 5
+        flips = torch.zeros_like(same)
+        if not floor and v != "full_nomed":
+            flips = same & ((acc[..., med] - want_acc[..., med]).abs()
+                            > TOL_MEDIAN * want_acc[..., med].abs().clamp(
+                                min=1.0))
+            same &= ~flips
+        scale = want_acc[same].abs().amax(dim=0).clamp(
+            min=1e-38 if floor else 1.0)
+        per_channel = (acc[same] - want_acc[same]).abs().amax(dim=0) / scale
+        err = float(per_channel.max())
+        tol = NOPAIR_TOL if v == "full_nopair" else VARIANT_TOL
+        mism = 1.0 - float(same.float().mean())
+        v_ok = (mism <= FLIP_FRACTION and err <= tol
+                and bool(torch.isfinite(acc).all())
+                and (lk is None) == (want_lk is None))
+        out[v] = dict(mismatch_frac=mism,
+                      median_flip_frac=float(flips.float().mean()),
+                      max_rel_err=err, worst_channel=int(per_channel.argmax()),
+                      tolerance=tol,
+                      max_abs_err=float((acc[same] - want_acc[same]).abs()
+                                        .max()),
+                      evaluated_pairs=count["evaluated"],
+                      within_tolerance=v_ok)
+        ok = ok and v_ok
+    return out, ok
+
+
+def t2_vs_plain(torch, bb, a):
+    """Every T2 variant against its plain version on the arguments ``a``
+    of a backward: per record row 0..9+nq, the largest error over the
+    row's largest gradient (ROW_TOL_REL, as K2)."""
+    nq = a[8]
+    out, ok = {}, True
+    for v in bb.VARIANTS:
+        got = bb.bisect_backward_cuda(v, *a)
+        want = bb.bisect_backward_plain(v, *a)
+        torch.cuda.synchronize()
+        rows = 10 + nq
+        err = rel_err(got[:rows], want[:rows], 1, 0.0)
+        v_ok = (err <= ROW_TOL_REL and bool(torch.isfinite(got).all())
+                and not bool(got[rows:].any()))
+        out[v] = dict(max_rel_err_per_row=err, tolerance=ROW_TOL_REL,
+                      max_abs_err=float((got - want).abs().max()),
+                      within_tolerance=v_ok)
+        ok = ok and v_ok
+    return out, ok
+
+
+def tool_phases(torch, photo_args, late_args, k2_photo):
+    """Phase group 9: the measurement tools T1-T4. Every T1/T2 variant
+    against its plain version on the dense stack and at full width, T1/T2
+    ``full`` bit for bit against the production K1/K2, and every variant
+    and mode timed at full width. ``photo_args``/``late_args`` are the
+    captured arguments of the photometric (nq 6) and late (nq 12, G 5)
+    backward at full width; ``k2_photo`` K2's line on the former. Returns
+    the kernels-line rows."""
+    from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel
+    from streetunveiler_torch.tools import (bisect_bwd, bisect_fwd,
+                                            micro_prefix, micro_reduce,
+                                            timing)
+    cuda_lib.reset_launch_counts()
+    t_start = time.perf_counter()
+
+    # ---- against the plain versions, on the dense stack
+    dense = dense_streams(torch)
+    all_ok = True
+    for n_gates, label in ((0, "photometric"), (5, "late")):
+        k1_args = dense[n_gates]
+        acc, lk = kernel.blend_forward_cuda(*k1_args)
+        nq = k1_args[5]
+        a = k1_args[:5] + (acc, lk, bisect_bwd.cotangents(acc, nq, n_gates),
+                           nq, n_gates)
+        f_res, f_ok = t1_vs_plain(torch, bisect_fwd, k1_args)
+        emit(f"bisect_fwd_vs_plain_{label}_dense", nq=nq, n_gates=n_gates,
+             duplicates=int(k1_args[1][-1]), variants=f_res,
+             within_tolerance=f_ok)
+        b_res, b_ok = t2_vs_plain(torch, bisect_bwd, a)
+        emit(f"bisect_bwd_vs_plain_{label}_dense", nq=nq, n_gates=n_gates,
+             variants=b_res, within_tolerance=b_ok)
+        all_ok = all_ok and f_ok and b_ok
+
+    # ---- at full width on the main path's streams: full bit for bit
+    # against the production kernels, every variant against its plain
+    # version, then every variant timed
+    rows = {}
+    for a, label in ((photo_args, "photometric"), (late_args, "late")):
+        nq, n_gates = a[8], a[9]
+        k1_args = a[:5] + (nq, n_gates)
+        acc_t, lk_t = bisect_fwd.bisect_forward_cuda("full", *k1_args)
+        acc_k, lk_k = kernel.blend_forward_cuda(*k1_args)
+        d_t = bisect_bwd.bisect_backward_cuda("full", *a)
+        d_k = kernel.blend_backward_cuda(*a)
+        torch.cuda.synchronize()
+        fwd_equal = torch.equal(acc_t, acc_k) and torch.equal(lk_t, lk_k)
+        bwd_equal = torch.equal(d_t, d_k)
+        emit(f"bisect_fwd_full_{label}", nq=nq, n_gates=n_gates,
+             bit_exact=fwd_equal)
+        emit(f"bisect_bwd_full_{label}", nq=nq, n_gates=n_gates,
+             bit_exact=bwd_equal)
+        del acc_t, lk_t, acc_k, lk_k, d_t, d_k
+        all_ok = all_ok and fwd_equal and bwd_equal
+
+        f_res, f_ok = t1_vs_plain(torch, bisect_fwd, k1_args)
+        emit(f"bisect_fwd_vs_plain_{label}_full_width", nq=nq,
+             n_gates=n_gates, duplicates=int(a[1][-1]), variants=f_res,
+             within_tolerance=f_ok)
+        b_res, b_ok = t2_vs_plain(torch, bisect_bwd, a)
+        emit(f"bisect_bwd_vs_plain_{label}_full_width", nq=nq,
+             n_gates=n_gates, variants=b_res, within_tolerance=b_ok)
+        all_ok = all_ok and f_ok and b_ok
+
+        fwd = {}
+        for v in bisect_fwd.VARIANTS:
+            ms = timing.median_ms(
+                lambda: bisect_fwd.bisect_forward_cuda(v, *k1_args),
+                TOOL_REPS)
+            fwd[v] = dict(ms=ms, evaluated_pairs=f_res[v]["evaluated_pairs"])
+        for v in bisect_fwd.VARIANTS:
+            fwd[v]["ms_minus_full"] = fwd[v]["ms"] - fwd["full"]["ms"]
+        emit(f"bisect_fwd_{label}", nq=nq, n_gates=n_gates,
+             duplicates=int(a[1][-1]), reps=TOOL_REPS, variants=fwd,
+             note="median of CUDA-event times; evaluated_pairs from the "
+                  "plain version's count")
+        # the kernel stores only the slots it walks into a zeroed dgrad:
+        # each variant's launches share one buffer zeroed before them, and
+        # the memset that a fresh dgrad costs is timed alone
+        bwd = {}
+        for v in bisect_bwd.VARIANTS:
+            buf = torch.zeros_like(a[0])
+            ms = timing.median_ms(
+                lambda: bisect_bwd.bisect_backward_cuda(v, *a, out=buf),
+                TOOL_REPS)
+            bwd[v] = dict(ms=ms, evaluated_pairs=bisect_bwd.evaluated_pairs(
+                v, a[1], a[5], a[6], nq, n_gates))
+            del buf
+        for v in bisect_bwd.VARIANTS:
+            bwd[v]["ms_minus_full"] = bwd[v]["ms"] - bwd["full"]["ms"]
+        zero_ms = timing.median_ms(lambda: torch.zeros_like(a[0]), TOOL_REPS)
+        emit(f"bisect_bwd_{label}", nq=nq, n_gates=n_gates, reps=TOOL_REPS,
+             variants=bwd, dgrad_zero_fill_ms=zero_ms,
+             dgrad_bytes=4 * a[0].numel(),
+             note="median of CUDA-event times, dgrad zeroed outside the "
+                  "timed launches; a fresh dgrad (as K2's wrapper makes) "
+                  "adds dgrad_zero_fill_ms")
+        if label == "photometric":
+            t1_plain_ms = timing.median_ms(
+                lambda: bisect_fwd.bisect_forward_plain("full", *k1_args), 1)
+            nbytes = 4 * (a[0].shape[0] * int(a[1][-1]) + a[1].numel()
+                          + a[5].numel() + a[6].numel())
+            t1_bound, t1_by = bound(
+                nbytes, K1_OPS_PER_PAIR * fwd["full"]["evaluated_pairs"])
+            t2_plain_ms = timing.median_ms(
+                lambda: bisect_bwd.bisect_backward_plain("full", *a), 1)
+            rows["T1"] = dict(ms=fwd["full"]["ms"], plain_ms=t1_plain_ms,
+                              bound_ms=t1_bound, bound_by=t1_by,
+                              max_abs_err=f_res["full"]["max_abs_err"])
+            rows["T2"] = dict(ms=bwd["full"]["ms"], plain_ms=t2_plain_ms,
+                              bound_ms=k2_photo["bound_ms"],
+                              bound_by=k2_photo["bound_by"],
+                              max_abs_err=b_res["full"]["max_abs_err"])
+
+    # ---- T3: micro_reduce at the TPU tool's size
+    x = micro_reduce.make_input()
+    nbytes = x.numel() * 4
+    modes, t3_ok = {}, True
+    for mode, k in micro_reduce.MODES:
+        got = micro_reduce.micro_reduce_cuda(mode, k, x)
+        want = micro_reduce.micro_reduce_plain(mode, k, x)
+        torch.cuda.synchronize()
+        cols = 1 if mode == "pair" else k
+        err = rel_err(got[:, :cols], want[:, :cols], 0, 0.0)
+        tol = MICRO_TOL_MMA if mode == "mma" else MICRO_TOL_F32
+        m_ok = err <= tol and not bool(got[:, cols:].any())
+        ms = timing.median_ms(lambda: micro_reduce.micro_reduce_cuda(
+            mode, k, x), TOOL_REPS)
+        modes[f"{mode}_k{k}"] = dict(
+            ms=ms, ns_per_block=ms * 1e6 / micro_reduce.NV,
+            precision=micro_reduce.PRECISION[mode], max_rel_err=err,
+            tolerance=tol, within_tolerance=m_ok)
+        t3_ok = t3_ok and m_ok
+    t3_plain_ms = timing.median_ms(
+        lambda: micro_reduce.micro_reduce_plain("thread", 13, x), 1)
+    t3_lib_ms = timing.median_ms(
+        lambda: micro_reduce.micro_reduce_library(13, x), TOOL_REPS)
+    t3_err = float((micro_reduce.micro_reduce_cuda("thread", 13, x)
+                    - micro_reduce.micro_reduce_plain("thread", 13, x)
+                    ).abs().max())
+    # the most operations: the pair chain's 50 per element
+    t3_bound, t3_by = bound(nbytes, 50 * x.numel())
+    emit("micro_reduce", nv=micro_reduce.NV, bytes=nbytes, modes=modes,
+         plain_ms_thread_k13=t3_plain_ms, library_ms=t3_lib_ms,
+         library_call="x.view(512, NV, 128).sum(-1).sum(-1)[:, None] * w",
+         bound_ms=t3_bound, bound_by=t3_by, within_tolerance=t3_ok)
+    rows["T3"] = dict(ms=modes["thread_k13"]["ms"], plain_ms=t3_plain_ms,
+                      bound_ms=t3_bound, bound_by=t3_by, max_abs_err=t3_err,
+                      library_ms=t3_lib_ms)
+    del x
+    all_ok = all_ok and t3_ok
+
+    # ---- T4: micro_prefix at the TPU tool's size
+    rec = micro_prefix.make_input()
+    n_chunks = micro_prefix.NCHUNK
+    pairs = n_chunks * micro_prefix.S * micro_prefix.P
+    modes, t4_ok = {}, True
+    for mode in micro_prefix.MODES:
+        got = micro_prefix.micro_prefix_cuda(mode, rec)
+        want = micro_prefix.micro_prefix_plain(mode, rec)
+        torch.cuda.synchronize()
+        err = rel_err(got, want, (0, 1), 0.0)
+        tol = MICRO_TOL_MMA if mode.startswith("mma") else MICRO_TOL_F32
+        m_ok = err <= tol and bool(torch.isfinite(got).all())
+        ms = timing.median_ms(lambda: micro_prefix.micro_prefix_cuda(
+            mode, rec), TOOL_REPS)
+        modes[mode] = dict(ms=ms, ns_per_chunk=ms * 1e6 / n_chunks,
+                           precision=micro_prefix.PRECISION[mode],
+                           max_rel_err=err, tolerance=tol,
+                           within_tolerance=m_ok)
+        t4_ok = t4_ok and m_ok
+    t4_plain_ms = timing.median_ms(
+        lambda: micro_prefix.micro_prefix_plain("serial", rec), 1)
+    t4_err = float((micro_prefix.micro_prefix_cuda("serial", rec)
+                    - micro_prefix.micro_prefix_plain("serial", rec)
+                    ).abs().max())
+    # what the function reads: rows 0-2 of each chunk; writes: out
+    t4_bytes = 4 * (3 * n_chunks * micro_prefix.S
+                    + n_chunks // micro_prefix.CPT * micro_prefix.P * 16)
+    t4_bound, t4_by = bound(t4_bytes, T4_OPS_PER_PAIR * pairs)
+    # the library yardstick, the scan alone: torch.cumsum over the four
+    # prefix operands (4 × 4.4 GB in and out), when the card has room
+    t4_lib_ms = None
+    torch.cuda.empty_cache()
+    if torch.cuda.mem_get_info()[0] > 48 * 2 ** 30:
+        ops = micro_prefix.prefix_operands(rec)
+        t4_lib_ms = timing.median_ms(lambda: torch.cumsum(ops, dim=-1), 3)
+        del ops
+        torch.cuda.empty_cache()
+    emit("micro_prefix", chunks=n_chunks, pairs=pairs, modes=modes,
+         plain_ms_serial=t4_plain_ms, library_ms=t4_lib_ms,
+         library_call="torch.cumsum(prefix_operands(rec), dim=-1): the scan "
+                      "of the four operands alone",
+         bytes=t4_bytes, operations=T4_OPS_PER_PAIR * pairs,
+         bound_ms=t4_bound, bound_by=t4_by, within_tolerance=t4_ok)
+    rows["T4"] = dict(ms=modes["serial"]["ms"], plain_ms=t4_plain_ms,
+                      bound_ms=t4_bound, bound_by=t4_by, max_abs_err=t4_err,
+                      library_ms=t4_lib_ms)
+    all_ok = all_ok and t4_ok
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launch_counts)
+    emit("tools_summary", seconds=time.perf_counter() - t_start,
+         tool_launches={k: launches[k] for k in ("bisect_fwd", "bisect_bwd",
+                                                 "micro_reduce",
+                                                 "micro_prefix")},
+         within_tolerance=all_ok)
+    if not all_ok:
+        raise AssertionError("a measurement tool's kernel disagrees with its "
+                             "plain version or with the production kernel")
+    for key, name in (("T1", "bisect_fwd"), ("T2", "bisect_bwd"),
+                      ("T3", "micro_reduce"), ("T4", "micro_prefix")):
+        rows[key]["tool_launches"] = launches[name]
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1067,6 +1414,7 @@ def main():
     from streetunveiler_torch.ops.rasterizer.preprocess import \
         preprocess_surfels
     from streetunveiler_torch.scene.cameras import Camera
+    from streetunveiler_torch.tools.street import street_state
     from streetunveiler_torch.utils.ply import state_from_ply, state_to_ply
 
     # ---- 1. device
@@ -1114,7 +1462,7 @@ def main():
 
     # ---- the full-width scene, through a PLY round trip
     t0 = time.perf_counter()
-    state0 = street_state()
+    state0 = street_state(device="cuda")
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as tmp:
         path = os.path.join(tmp, "street.ply")
@@ -1290,6 +1638,9 @@ def main():
     train_scene_synthetic(torch)
     train_scene_synthetic(torch, late=True)
 
+    # ---- 9. the measurement tools
+    tools = tool_phases(torch, k2[6]["args"], late["args"], k2[6])
+
     # ---- 8. kernels; launches are those of the training main path, and
     # of the late path for the gated variants
     k1g, k2g = late["k1"], late["k2"]
@@ -1335,6 +1686,29 @@ def main():
              plain_ms=k2g["plain_ms"], bound_ms=k2g["bound_ms"],
              bound_by=k2g["bound_by"], library_ms=None),
     ]
+    # the tools run on no main path: launches 0 there, their own count in
+    # tool_launches; ms is T1/T2 full on the photometric stream, T3's
+    # thread mode at k 13 and T4's serial mode (every variant and mode in
+    # the lines of phase group 9)
+    csrc = "streetunveiler_torch/ops/rasterizer/csrc/"
+    for key, name, source, replaces in (
+            ("T1", "T1 bisect_fwd variants of K1", csrc + "bisect_fwd.cu",
+             "tools/bisect_fwd.py:281"),
+            ("T2", "T2 bisect_bwd variants of K2", csrc + "bisect_bwd.cu",
+             "tools/bisect_bwd.py:199"),
+            ("T3", "T3 micro_reduce lane reductions",
+             csrc + "micro_reduce.cu", "tools/micro_reduce.py:70"),
+            ("T4", "T4 micro_prefix prefix sums", csrc + "micro_prefix.cu",
+             "tools/micro_prefix.py:105")):
+        r = tools[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=train_launches[{"T1": "bisect_fwd", "T2": "bisect_bwd",
+                                     "T3": "micro_reduce",
+                                     "T4": "micro_prefix"}[key]],
+            tool_launches=r["tool_launches"], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r.get("library_ms")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -16,7 +16,7 @@ from .types import ALPHA_EPS, ALPHA_MAX, FILTER_INV_SQUARE, T_EPS
 
 
 def pair_alpha_depth(m_rows, center2d, center_depth, opacity, valid,
-                     px, py, znear):
+                     px, py, znear, exp=torch.exp):
     """Alpha and intersection depth for every (surfel, pixel) pair.
 
     m_rows: 9 tensors — rows of M (r1x, r1y, r1z, r2x, ..., r3z);
@@ -24,7 +24,8 @@ def pair_alpha_depth(m_rows, center2d, center_depth, opacity, valid,
     The per-surfel tensors are shaped to broadcast against ``px``/``py``
     (1-D [S] against 1-D [P] gives [S, P]; callers with batch axes shape
     them themselves). Returns (alpha, t), alpha zeroed for non-contributing
-    pairs.
+    pairs. ``exp`` is the Gaussian falloff's exponential (a measurement
+    variant swaps in a linear stand-in).
 
     k = hu × hv is affine in the pixel: k = (r1×r2) + px·(r2×r3) +
     py·(r3×r1), and r3·k = det(M), so the cross products are per-surfel.
@@ -67,7 +68,7 @@ def pair_alpha_depth(m_rows, center2d, center_depth, opacity, valid,
     rho = torch.where(use2d, rho2d, rho3d)
     t = torch.where(use2d, center_depth.expand_as(t_isect), t_isect)
 
-    g = torch.exp(-0.5 * rho)
+    g = exp(-0.5 * rho)
     alpha = torch.clamp(opacity * g, max=ALPHA_MAX)
     contrib = (alpha >= ALPHA_EPS) & (t >= znear) & valid
     return torch.where(contrib, alpha, torch.zeros_like(alpha)), t

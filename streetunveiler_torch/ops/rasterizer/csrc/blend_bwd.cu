@@ -16,9 +16,7 @@ extern "C" int su_blend_bwd(const float* recT, int rec, int cap, int nq,
                             const float* dacc, float* dgrad, int device,
                             void* stream) {
   using namespace su_bwd;
-  if (nq < 1 || nq > kMaxQ || rec < kQRow0 + nq || n_tiles < 0 ||
-      n_gates < 0 || n_gates > kMaxGates ||
-      (n_gates > 0 && (gate_row < 0 || gate_row >= rec || cap >= kMaxStream)))
+  if (!bwd_args_ok(rec, cap, nq, n_gates, gate_row, n_tiles))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;

@@ -1,7 +1,11 @@
 // K2 — 2DGS blend backward over the tile-grouped, depth-sorted duplicate
-// stream: the kernel template, instantiated by blend_bwd.cu (no gated
-// chains, and the C interface) and blend_bwd_gated.cu (G gated chains), so
-// that the two compile in parallel.
+// stream: the kernel template on (nq, G, measurement variant),
+// instantiated by blend_bwd.cu (no gated chains, and the C interface) and
+// blend_bwd_gated.cu (G gated chains), so that the two compile in
+// parallel, and by bisect_bwd.cu and bisect_bwd_g5.cu (the variants of the
+// bisection tool streetunveiler_torch/tools/bisect_bwd.py, at (6, 0) and
+// (12, 5)). The kernel has internal linkage, so each translation unit
+// keeps its own copy.
 //
 // Replaces the Pallas kernel streetunveiler_tpu/ops/rasterizer/kernel.py
 // `_bwd_kernel` (launched by `_blend_bwd`, kernel.py:709-760, the custom
@@ -73,6 +77,26 @@
 // zero. Templated on (nq, G): the gated state (U_g, S_g, lk_g) lives in
 // registers; the gated cotangents are read from dacc (L1) when a pair of
 // that class is kept.
+//
+// Measurement variants (VAR), each named after its TPU counterpart in
+// tools/bisect_bwd.py:71-142 and each feeding dgrad, so that nvcc keeps
+// what it computes. "Stream chunk" is the TPU tool's visit: the 128 stream
+// slots [128c, 128c + 128) of one tile.
+//   kBwdFull   the production kernel.
+//   kBwdFloor  staging and the walk from the tile's deepest lk down; per
+//              pair fl += opacity * U, U *= 0.999 (U from 1), and each
+//              duplicate's rows 0..9+nq = 1e-30 fl after its batch.
+//   kNoVjp     the per-pair VJP replaced by summed values 1e-30 da (even)
+//              and 1e-30 dt (odd); the chain through the cross products
+//              and the payload gradients stay.
+//   kNoDq      no payload gradients gq w and no sums of them (rows zero).
+//   kNoGqqc    Omega's gq.q replaced by 1e-6 w.
+//   kNoSuffmm  no suffix updates: T_excl = U frozen within a stream chunk,
+//              S_pair = S + 1e-6 w Omega; at the chunk's end U *= 0.999 and
+//              S += the chunk's sum of w Omega (every chain).
+//   kBwdNoExp  the division rebuild T = U / (1 - a) replaced by the
+//              multiply T = U (1 + a) (the TPU tool's linearised exp of the
+//              log-space suffix; every chain).
 
 #pragma once
 
@@ -82,6 +106,7 @@
 #include "pair_math.cuh"
 
 namespace su_bwd {
+namespace {
 
 using su_pair::kGeo;
 using su_pair::kQRow0;
@@ -96,6 +121,18 @@ constexpr int kMaxQ = 16;        // payload channels a launch may carry
 constexpr int kMaxGates = 6;     // gated chains a launch may carry
 constexpr int kMaxStream = 1 << 24;   // lk_g is exact below 2^24
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kChunkShift = 7;   // stream chunk of the TPU tool: 128 slots
+
+enum BwdVariant {
+  kBwdFull = 0,
+  kBwdFloor,
+  kNoVjp,
+  kNoDq,
+  kNoGqqc,
+  kNoSuffmm,
+  kBwdNoExp,
+  kNumBwdVariants
+};
 
 // indices of the summed geometry values
 constexpr int kDA = 0;           // dA (3): d k, summed
@@ -107,14 +144,21 @@ constexpr int kDCy = 11;         //                           y
 constexpr int kDZ = 12;          // center depth, through t where use2d
 constexpr int kDOp = 13;         // opacity
 
-template <int NQ, int G>
+// values summed over the tile's pixels per duplicate
+template <int NQ, int VAR>
+__host__ __device__ constexpr int summed() {
+  return kNv + (VAR == kNoDq ? 0 : NQ);
+}
+
+template <int NQ, int G, int VAR = kBwdFull>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
          ((size_t)(kGeo + NQ + (G > 0 ? 1 : 0)) * kB +
-          (size_t)kWarps * kB * (kNv + NQ) + (size_t)kB * (kNv + NQ));
+          (size_t)kWarps * kB * summed<NQ, VAR>() +
+          (size_t)kB * summed<NQ, VAR>());
 }
 
-template <int NQ, int G>
+template <int NQ, int G, int VAR>
 __global__ void __launch_bounds__(kPix, 1)
 blend_bwd_kernel(const float* __restrict__ recT, int cap, int gate_row,
                  const int32_t* __restrict__ tile_offsets, int tiles_x,
@@ -122,7 +166,7 @@ blend_bwd_kernel(const float* __restrict__ recT, int cap, int gate_row,
                  const int32_t* __restrict__ lk,
                  const float* __restrict__ dacc,
                  float* __restrict__ dgrad) {
-  constexpr int V = kNv + NQ;
+  constexpr int V = summed<NQ, VAR>();
   constexpr int CH = NQ + 6 + 4 * G;
   constexpr int GA = G > 0 ? G : 1;
   constexpr int kGate = kGeo + NQ;          // staged row of the gate mask
@@ -173,8 +217,17 @@ blend_bwd_kernel(const float* __restrict__ recT, int cap, int gate_row,
   const float g_m1 = d[NQ + 3], g_m2 = d[NQ + 4];
   const float dscale = zfar / (zfar - znear);
   const float dmdt_num = zfar * znear / (zfar - znear);
-  float U = 1.0f - accp[NQ];             // transmittance after the pair
+  // transmittance after the pair
+  float U = VAR == kBwdFloor ? 1.0f : 1.0f - accp[NQ];
   float S = 0.0f;                        // sum of w * Omega behind it
+  // variants: the floor's sum; kNoSuffmm's stream chunk and the sums of
+  // w * Omega it has pending, per chain
+  float fl = 0.0f;
+  int chunk = -1;
+  float s_pend = 0.0f;
+  float sg_pend[GA];
+#pragma unroll
+  for (int g = 0; g < GA; ++g) sg_pend[g] = 0.0f;
 
   for (int top = top_all; top > start; top -= kB) {
     const int base = max(start, top - kB);
@@ -191,11 +244,41 @@ blend_bwd_kernel(const float* __restrict__ recT, int cap, int gate_row,
     }
     __syncthreads();
 
+    if (VAR == kBwdFloor) {
+      for (int j = nb - 1; j >= 0; --j) {
+        fl += geo[13 * kB + j] * U;
+        U *= 0.999f;
+      }
+      if (p < nb) {
+        float* o = dgrad + base + p;
+        for (int k = 0; k < kQRow0 + NQ; ++k) o[(size_t)k * cap] = 1e-30f * fl;
+      }
+      continue;
+    }
+
     for (int j = nb - 1; j >= 0; --j) {
-      float v[V];
+      float v[kNv + NQ];
 #pragma unroll
-      for (int i = 0; i < V; ++i) v[i] = 0.0f;
+      for (int i = 0; i < kNv + NQ; ++i) v[i] = 0.0f;
       bool keep = false;
+      if (VAR == kNoSuffmm) {
+        const int c = (base + j) >> kChunkShift;
+        if (c != chunk) {
+          if (chunk >= 0) {
+            U *= 0.999f;
+            S += s_pend;
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              ug[g] *= 0.999f;
+              sg[g] += sg_pend[g];
+            }
+          }
+          chunk = c;
+          s_pend = 0.0f;
+#pragma unroll
+          for (int g = 0; g < GA; ++g) sg_pend[g] = 0.0f;
+        }
+      }
       if (base + j <= my_top) {
         const su_pair::Pair e =
             su_pair::eval_pair(geo, kB, j, px, py, znear);
@@ -207,20 +290,30 @@ blend_bwd_kernel(const float* __restrict__ recT, int cap, int gate_row,
           float da = 0.0f, dt = 0.0f;
           if (base + j <= my_lk) {
             keep = true;
-            const float T = U / one_m;
-            U = T;
+            const float T = VAR == kNoSuffmm   ? U
+                            : VAR == kBwdNoExp ? U * (1.0f + a)
+                                               : U / one_m;
+            if (VAR != kNoSuffmm) U = T;
             const float w = a * T;
             float gqq = 0.0f;
 #pragma unroll
             for (int k = 0; k < NQ; ++k) {
-              const float q = geo[(kGeo + k) * kB + j];
-              gqq += gq[k] * q;
-              v[kNv + k] = gq[k] * w;
+              if (VAR != kNoGqqc) {
+                const float q = geo[(kGeo + k) * kB + j];
+                gqq += gq[k] * q;
+              }
+              if (VAR != kNoDq) v[kNv + k] = gq[k] * w;
             }
+            if (VAR == kNoGqqc) gqq = w * 1e-6f;
             const float omega =
                 gqq + g_alpha + g_depth * t + g_m1 * m + g_m2 * m * m;
-            da = T * omega - S / one_m;
-            S += w * omega;
+            if (VAR == kNoSuffmm) {
+              da = T * omega - (S + w * omega * 1e-6f) / one_m;
+              s_pend += w * omega;
+            } else {
+              da = T * omega - S / one_m;
+              S += w * omega;
+            }
             dt = w * (g_depth + (g_m1 + 2.0f * m * g_m2) * dmdt);
           }
           if (G > 0) {
@@ -231,18 +324,28 @@ blend_bwd_kernel(const float* __restrict__ recT, int cap, int gate_row,
                 keep = true;
                 const float* dg = d + NQ + 6 + 4 * g;
                 const float ga = dg[0], gm1 = dg[1], gm2 = dg[2];
-                const float T = ug[g] / one_m;
-                ug[g] = T;
+                const float T = VAR == kNoSuffmm   ? ug[g]
+                                : VAR == kBwdNoExp ? ug[g] * (1.0f + a)
+                                                   : ug[g] / one_m;
+                if (VAR != kNoSuffmm) ug[g] = T;
                 const float w = a * T;
                 const float omega = ga + gm1 * m + gm2 * m * m;
-                da = da + (T * omega - sg[g] / one_m);
-                sg[g] += w * omega;
+                if (VAR == kNoSuffmm) {
+                  da = da + (T * omega - (sg[g] + w * omega * 1e-6f) / one_m);
+                  sg_pend[g] += w * omega;
+                } else {
+                  da = da + (T * omega - sg[g] / one_m);
+                  sg[g] += w * omega;
+                }
                 dt = dt + w * (gm1 + 2.0f * m * gm2) * dmdt;
               }
             }
           }
 
-          if (keep) {
+          if (VAR == kNoVjp && keep) {
+#pragma unroll
+            for (int i = 0; i < kNv; ++i) v[i] = 1e-30f * ((i & 1) ? dt : da);
+          } else if (keep) {
             // VJP of the pair function
             const float opac = geo[13 * kB + j];
             const float dar = e.araw <= su_pair::kAlphaMax ? da : 0.0f;
@@ -353,24 +456,27 @@ blend_bwd_kernel(const float* __restrict__ recT, int cap, int gate_row,
       o[7 * ld] = s[kDCy] + d2z * z;
       o[8 * ld] = s[kDZ] + d1z * c2dx + d2z * c2dy + d3z;
       o[9 * ld] = s[kDOp];
+      if (VAR != kNoDq) {
 #pragma unroll
-      for (int k = 0; k < NQ; ++k) o[(size_t)(kQRow0 + k) * ld] = s[kNv + k];
+        for (int k = 0; k < NQ; ++k)
+          o[(size_t)(kQRow0 + k) * ld] = s[kNv + k];
+      }
     }
   }
 }
 
-template <int NQ, int G>
+template <int NQ, int G, int VAR = kBwdFull>
 cudaError_t launch(const float* recT, int cap, int gate_row,
                    const int32_t* tile_offsets, int n_tiles, int tiles_x,
                    float znear, float zfar, const float* acc,
                    const int32_t* lk, const float* dacc, float* dgrad,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes<NQ, G>();
+  const size_t smem = smem_bytes<NQ, G, VAR>();
   cudaError_t err = cudaFuncSetAttribute(
-      blend_bwd_kernel<NQ, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      blend_bwd_kernel<NQ, G, VAR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  blend_bwd_kernel<NQ, G><<<n_tiles, kPix, smem, stream>>>(
+  blend_bwd_kernel<NQ, G, VAR><<<n_tiles, kPix, smem, stream>>>(
       recT, cap, gate_row, tile_offsets, tiles_x, znear, zfar, acc, lk, dacc,
       dgrad);
   return cudaGetLastError();
@@ -396,6 +502,38 @@ cudaError_t launch_nq(int nq, const float* recT, int cap, int gate_row,
 #undef SU_BWD_CASE
   return cudaErrorInvalidValue;
 }
+
+// launch<NQ, G, VAR> for a variant given at run time
+template <int NQ, int G>
+cudaError_t launch_variant(int variant, const float* recT, int cap,
+                           int gate_row, const int32_t* tile_offsets,
+                           int n_tiles, int tiles_x, float znear, float zfar,
+                           const float* acc, const int32_t* lk,
+                           const float* dacc, float* dgrad, cudaStream_t s) {
+#define SU_BISECT_CASE(VAR)                                                \
+  case VAR:                                                                \
+    return launch<NQ, G, VAR>(recT, cap, gate_row, tile_offsets, n_tiles, \
+                              tiles_x, znear, zfar, acc, lk, dacc, dgrad, \
+                              s);
+  switch (variant) {
+    SU_BISECT_CASE(kBwdFull) SU_BISECT_CASE(kBwdFloor) SU_BISECT_CASE(kNoVjp)
+    SU_BISECT_CASE(kNoDq) SU_BISECT_CASE(kNoGqqc) SU_BISECT_CASE(kNoSuffmm)
+    SU_BISECT_CASE(kBwdNoExp)
+  }
+#undef SU_BISECT_CASE
+  return cudaErrorInvalidValue;
+}
+
+// The arguments every C entry of K2 and its variants checks.
+inline bool bwd_args_ok(int rec, int cap, int nq, int n_gates, int gate_row,
+                        int n_tiles) {
+  return !(nq < 1 || nq > kMaxQ || rec < kQRow0 + nq || n_tiles < 0 ||
+           n_gates < 0 || n_gates > kMaxGates ||
+           (n_gates > 0 &&
+            (gate_row < 0 || gate_row >= rec || cap >= kMaxStream)));
+}
+
+}  // namespace
 
 // The gated instantiations (G = 1..kMaxGates at nq 6 and 12), in
 // blend_bwd_gated.cu; other nq return cudaErrorInvalidValue.

@@ -67,6 +67,9 @@ struct Pair {
   bool contrib;        // a >= 1/255, t >= znear, opacity > 0
 };
 
+// kExp = false is the measurement variant of csrc/bisect_fwd.cu: exp(x)
+// replaced by the linear stand-in 1 + x.
+template <bool kExp = true>
 __device__ __forceinline__ Pair eval_pair(const float* sm, int stride, int j,
                                           float px, float py, float znear) {
   Pair e;
@@ -86,7 +89,7 @@ __device__ __forceinline__ Pair eval_pair(const float* sm, int stride, int j,
   e.use2d = rho3d > rho2d;
   const float rho = e.use2d ? rho2d : rho3d;
   e.t = e.use2d ? sm[12 * stride + j] : sm[9 * stride + j] * e.rcp;
-  e.g = expf(-0.5f * rho);
+  e.g = kExp ? expf(-0.5f * rho) : 1.0f + -0.5f * rho;
   e.araw = opac * e.g;
   e.a = fminf(kAlphaMax, e.araw);
   e.contrib = e.a >= kAlphaEps && e.t >= znear && opac > 0.0f;

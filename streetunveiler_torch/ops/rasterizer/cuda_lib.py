@@ -37,7 +37,10 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v"]
 
 launch_counts = {"blend_fwd": 0, "blend_bwd": 0, "expand": 0,
-                 "blend_fwd_gated": 0, "blend_bwd_gated": 0}
+                 "blend_fwd_gated": 0, "blend_bwd_gated": 0,
+                 # the measurement tools (streetunveiler_torch/tools/)
+                 "bisect_fwd": 0, "bisect_bwd": 0, "micro_reduce": 0,
+                 "micro_prefix": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -153,6 +156,16 @@ def load_library() -> ctypes.CDLL:
                                          i32, i32, f32, f32, vp, vp, vp, vp,
                                          i32, vp]
             lib.su_blend_bwd.restype = i32
+            lib.su_bisect_fwd.argtypes = [i32] + lib.su_blend_fwd.argtypes
+            lib.su_bisect_fwd.restype = i32
+            lib.su_bisect_bwd.argtypes = [i32] + lib.su_blend_bwd.argtypes
+            lib.su_bisect_bwd.restype = i32
+            lib.su_micro_reduce.argtypes = [i32, i32, vp, i32, i32, vp, vp,
+                                            i32, vp]
+            lib.su_micro_reduce.restype = i32
+            lib.su_micro_prefix.argtypes = [i32, vp, ctypes.c_longlong, i32,
+                                            vp, i32, vp]
+            lib.su_micro_prefix.restype = i32
             lib.su_error_string.argtypes = [i32]
             lib.su_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -24,7 +24,8 @@ stream index of the class's last composited duplicate, as a float,
 depend on the gates.
 
 ``blend_stream`` is the entry: an ``autograd.Function`` whose forward
-launches kernel K1 (``csrc/blend_fwd.cu``) on a CUDA tensor and runs
+launches kernel K1 (``csrc/blend_fwd.cuh``, instantiated in
+``blend_fwd.cu``) on a CUDA tensor and runs
 ``blend_forward_plain`` on a CPU tensor, and whose backward launches
 kernel K2 (``csrc/blend_bwd.cuh``, instantiated in ``blend_bwd.cu`` and
 ``blend_bwd_gated.cu``) or runs ``blend_backward_plain`` the same way. On a CUDA tensor a kernel that fails to build or launch raises;
