@@ -29,7 +29,15 @@ drives the two paths of the port on the 300k-surfel street scene at
   the production K1/K2 at full width, then every variant timed on the
   main path's streams; the micro-probes T3 (``micro_reduce``) and T4
   (``micro_prefix``) against their plain versions and timed at the TPU
-  tools' sizes.
+  tools' sizes;
+* the probes (phase group 10): the per-step floors T5 and T6
+  (``micro_floor``, every variant and width at the tool's sizes), the
+  identity copies T7 and T8 (``probe_compose4``, ``probe_tax``) on the
+  street's binning outputs and T9's split-precision contraction
+  (``probe_mmt3``) against their plain versions; then the probes' path
+  (binning → copy → gather → K1 on the street) with the launch counts
+  read around it, the laundered blends bit for bit against the
+  unlaundered, and every variant timed.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last two lines are the kernels table and
@@ -40,6 +48,7 @@ imports nothing of JAX. Without a CUDA device it exits 2 and prints no
 result.
 """
 
+import collections
 import json
 import os
 import statistics
@@ -858,8 +867,9 @@ def ptxas_summary(log):
     """Registers and spills from the build log's ptxas lines: the
     production instantiations the paths run (every K1, K2 at nq 6, 9 and
     12, K2 gated at (6, 3) and (12, 5), K3), and every instantiation of the
-    measurement tools (T1<G,variant>, T2<nq,G,variant>, T3 and T4 kernels),
-    named by the translation unit that built them."""
+    measurement tools (T1<G,variant>, T2<nq,G,variant>, T3 and T4 kernels,
+    T5/T6<width,flags> of csrc/micro_floor.cu, the T7/T8 copy, T9), named
+    by the translation unit that built them."""
     import re
     from streetunveiler_torch.tools import bisect_bwd, bisect_fwd
     keep = {"K1<%d>" % g for g in range(7)} | {
@@ -876,6 +886,7 @@ def ptxas_summary(log):
             # the kernel's name follows its length in the mangled name
             probe = re.search(r"\d(reduce_[a-z]+|prefix_[a-z]+)(?:ILi(\d+)E)?",
                               line)
+            walk = re.search(r"floor_walkILi(\d+)ELi(\d+)E", line)
             if fwd and unit.startswith("bisect"):
                 g, v = ints(fwd)
                 name = f"T1<{g},{bisect_fwd.VARIANTS[v]}>"
@@ -887,6 +898,11 @@ def ptxas_summary(log):
             elif bwd:
                 q, g, _ = ints(bwd)
                 name = f"K2<{q},{g}>"
+            elif walk:
+                w, flags = ints(walk)
+                name = f"T{6 if flags & 16 else 5}<{w},{flags}>"
+            elif "copy_int4" in line or "mmt3_kernel" in line:
+                name = "T7/T8 copy" if "copy_int4" in line else "T9"
             elif probe:
                 tag = "T3" if unit.startswith("micro_reduce") else "T4"
                 name = f"{tag} {probe.group(1)}" + (
@@ -1396,6 +1412,320 @@ def tool_phases(torch, photo_args, late_args, k2_photo):
     return rows
 
 
+# T5-T9 (phase group 10). T5/T6 hold one value per output block, the f32
+# fold of its steps' chunk sums: exact where the plain version's block is
+# zero, else within FLOOR_RTOL relative (the chunk sums in another order).
+# T9 against its plain version per output, relative to the output's
+# largest value (the tensor core accumulates in its own order), and its
+# three ways against the truth within the three-pass class: the dropped
+# lo·lo term is below 2^-14 of each product.
+FLOOR_RTOL = 1e-6
+MMT3_PLAIN_TOL, MMT3_TRUTH_TOL = 1e-6, 2.0 ** -14
+BF16_OPS_PER_S = 989e12      # published H100 SXM dense bf16 tensor rate
+
+
+def graph_ms(torch, fn, replayed, calls=20, replays=5):
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, its replays timed between CUDA events, the median replay
+    over ``calls``. The host's time per call, which sets a launch-bound
+    call's event time, is left out; the launch gaps inside the graph stay.
+    A wrapper counts its launch once, at capture; the kernel launches the
+    graph's replays make are added to ``replayed`` (a Counter by key)."""
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = dict(cuda_lib.launch_counts)
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    for k, n in cuda_lib.launch_counts.items():
+        replayed[k] += (n - before.get(k, 0)) * (replays + 1)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def floor_err(torch, got, want):
+    """(exact where want is zero, largest relative error elsewhere)."""
+    zero = want == 0
+    nz = ~zero
+    rel = float(((got[nz] - want[nz]).abs() / want[nz].abs()).max()) \
+        if bool(nz.any()) else 0.0
+    return bool((got[zero] == 0).all()), rel
+
+
+def probe_phases(torch):
+    """Phase group 10: the per-step floors T5/T6, the identity copies T7/T8
+    and the split-precision contraction T9. Each kernel against its plain
+    version at the tools' full sizes (T7/T8 on the street's real binning
+    outputs); then the probes' path, each tool's run once through its
+    entry points with the launch counts set to 0 before and read after
+    (every kernel must launch, and every probe's laundered blend must
+    equal the unlaundered one bit for bit); then every variant timed.
+    Returns the kernels-line rows."""
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch.tools import (micro_floor, probe_compose4,
+                                            probe_mmt3, probe_tax, street,
+                                            timing)
+    cuda_lib.reset_launch_counts()
+    t_start = time.perf_counter()
+    rows, all_ok = {}, True
+
+    # ---- T5 and T6 against their plain versions at the tool's sizes
+    rec = micro_floor.make_input()
+    visits = micro_floor.visit_arrays(device="cuda")
+    tile_of, chunk_of, first, n_real = visits
+    n_tiles, vcap = micro_floor.N_TILES, tile_of.numel()
+    floor_res = {}
+    for variant in micro_floor.VARIANTS:
+        args = (variant, rec, tile_of, chunk_of, first, n_tiles)
+        got = micro_floor.micro_floor_visit_cuda(*args)
+        want = micro_floor.micro_floor_visit_plain(*args)
+        torch.cuda.synchronize()
+        errs = [floor_err(torch, g, w) for g, w in zip(got, want)]
+        ok = len(got) == len(want) and all(
+            z and r <= FLOOR_RTOL for z, r in errs)
+        floor_res[variant] = dict(
+            exact_where_zero=all(z for z, _ in errs),
+            max_rel_err=max(r for _, r in errs),
+            zero_tiles=int((want[0][:, 0, 0] == 0).sum()),
+            max_abs_err=max(float((g - w).abs().max())
+                            for g, w in zip(got, want)),
+            within_tolerance=ok)
+        all_ok = all_ok and ok
+        del got, want
+    for sb in micro_floor.SBLOCKS:
+        tile_map = micro_floor.linear_tile_map(rec.shape[1] // sb, n_tiles,
+                                               "cuda")
+        got = micro_floor.micro_floor_linear_cuda(sb, rec, tile_map, n_tiles)
+        want = micro_floor.micro_floor_linear_plain(sb, rec, tile_map,
+                                                    n_tiles)
+        torch.cuda.synchronize()
+        z, r = floor_err(torch, got, want)
+        ok = z and r <= FLOOR_RTOL
+        floor_res[f"linear_sb{sb}"] = dict(
+            exact_where_zero=z, max_rel_err=r,
+            zero_tiles=int((want[:, 0, 0] == 0).sum()),
+            max_abs_err=float((got - want).abs().max()),
+            within_tolerance=ok)
+        all_ok = all_ok and ok
+        del got, want
+    emit("micro_floor_vs_plain", steps=vcap, real_visits=n_real,
+         tiles=n_tiles, chunks=micro_floor.N_CHUNKS, variants=floor_res,
+         tolerance=FLOOR_RTOL)
+
+    # ---- T7 and T8 on the street's real binning outputs, bit for bit
+    ctx = street.probe_inputs(device="cuda")
+    off, surf = ctx.binning.tile_offsets, ctx.binning.sorted_surfel
+    ident = {}
+    for name, x in (("tile_offsets", off), ("sorted_surfel", surf)):
+        ident[f"identity_{name}"] = torch.equal(
+            probe_tax.identity_copy_cuda(x), probe_tax.identity_copy_plain(x))
+    for name, xs in (("tile_offsets", (off,)),
+                     ("sorted_surfel_and_reverse", (surf, surf.flip(0)))):
+        got = probe_compose4.identity_copy_stack_cuda(*xs)
+        want = probe_compose4.identity_copy_stack_plain(*xs)
+        ident[f"identity_stack_{name}"] = len(got) == len(xs) and all(
+            torch.equal(g, w) and torch.equal(g, x)
+            for g, w, x in zip(got, want, xs))
+    torch.cuda.synchronize()
+    emit("identity_vs_plain", tiles=ctx.tiles_x * ctx.tiles_y,
+         duplicates=int(off[-1]), stream_slots=surf.numel(),
+         bit_exact=ident)
+    all_ok = all_ok and all(ident.values())
+
+    # ---- T9 against its plain version and the truth
+    w, b = probe_mmt3.make_inputs("cuda")
+    got = probe_mmt3.mmt3_cuda(w, b)
+    want = probe_mmt3.mmt3_plain(w, b)
+    torch.cuda.synchronize()
+    names = probe_mmt3.WAYS + ("truth",)
+    plain_err = {n: float((g - x).abs().max() / x.abs().max())
+                 for n, g, x in zip(names, got, want)}
+    truth_err = probe_mmt3.truth_errors(got)
+    t9_ok = (max(plain_err.values()) <= MMT3_PLAIN_TOL
+             and max(truth_err.values()) <= MMT3_TRUTH_TOL)
+    emit("mmt3_vs_plain", max_rel_err_vs_plain=plain_err,
+         max_rel_err_vs_truth=truth_err,
+         plain_max_rel_err_vs_truth=probe_mmt3.truth_errors(want),
+         ways_bit_equal=torch.equal(got[0], got[1])
+         and torch.equal(got[0], got[2]),
+         tolerance_plain=MMT3_PLAIN_TOL, tolerance_truth=MMT3_TRUTH_TOL,
+         within_tolerance=t9_ok)
+    t9_abs = max(float((g - x).abs().max()) for g, x in zip(got, want))
+    all_ok = all_ok and t9_ok
+
+    # ---- the probes' path: each tool once through its entry points
+    torch.cuda.synchronize()
+    checks = dict(cuda_lib.launch_counts)
+    cuda_lib.reset_launch_counts()
+    micro_floor.run(rec, visits, n_tiles, reps=0)
+    compose = probe_compose4.run(ctx, reps=0)
+    tax = probe_tax.run(ctx, reps=0)
+    probe_mmt3.run(w, b, reps=0)
+    torch.cuda.synchronize()
+    path = dict(cuda_lib.launch_counts)
+    keys = ("micro_floor_visit", "micro_floor_linear", "identity_stack",
+            "identity", "mmt3")
+    acc0, lk0 = compose[0]["out"]
+    laundered = {l.get("mode") or f"{l['variant']}_x{l['calls']}":
+                 torch.equal(l["out"][0], acc0) and torch.equal(l["out"][1],
+                                                                 lk0)
+                 for l in compose + tax}
+    path_ok = all(path[k] > 0 for k in keys) and all(laundered.values())
+    emit("probe_path", launches={k: path[k] for k in keys},
+         other_launches={k: v for k, v in path.items()
+                         if k not in keys and v},
+         blend_bit_exact_vs_k_bin=laundered, within_tolerance=path_ok)
+    del compose, tax, acc0, lk0
+    all_ok = all_ok and path_ok
+
+    # ---- every variant timed
+    floor = {l["variant"]: l for l in micro_floor.run(rec, visits, n_tiles,
+                                                      TOOL_REPS)}
+    emit("micro_floor", reps=TOOL_REPS, variants=floor,
+         note="ms: the walk of every step alone, its CSR built beforehand "
+              "(csr_ms); ms_real_steps: the same without the padding's "
+              "no-op steps; median of CUDA-event times")
+    compose = {l["mode"]: l["ms"] for l in probe_compose4.run(ctx,
+                                                              TOOL_REPS)}
+    tax = {f"{l['variant']}_x{l['calls']}": l["ms"]
+           for l in probe_tax.run(ctx, TOOL_REPS)}
+    pad1 = probe_tax.pad_lanes(off)
+    pad_stack = probe_compose4.stack_lanes(off)
+    t8_ms = timing.median_ms(lambda: probe_tax.copy_cuda(pad1), TOOL_REPS)
+    t7_ms = timing.median_ms(
+        lambda: probe_tax.copy_cuda(pad_stack, "identity_stack"), TOOL_REPS)
+    clone_ms = timing.median_ms(lambda: pad1.clone(), TOOL_REPS)
+    clone_stack_ms = timing.median_ms(lambda: pad_stack.clone(), TOOL_REPS)
+    t8_wrapper_ms = timing.median_ms(lambda: probe_tax.identity_copy_cuda(
+        off), TOOL_REPS)
+    t7_wrapper_ms = timing.median_ms(
+        lambda: probe_compose4.identity_copy_stack_cuda(off), TOOL_REPS)
+    emit("probe_compose4", reps=TOOL_REPS, ms=compose,
+         launder_ms=compose["k_bin_launder"] - compose["k_bin"],
+         note="binning then K1; k_full_launder1 equals k_full_launder (one "
+              "index array)")
+    emit("probe_tax", reps=TOOL_REPS, ms=tax,
+         launder_ms=tax["launder_x1"] - tax["args_x1"],
+         dyn_ms=tax["dyn_x1"] - tax["args_x1"],
+         second_blend_ms=tax["args_x2"] - tax["args_x1"])
+    # launch-bound: the device time of each call beside its event time
+    dev = dict(
+        kernel=lambda: probe_tax.copy_cuda(pad1),
+        kernel_stack=lambda: probe_tax.copy_cuda(pad_stack, "identity_stack"),
+        plain=lambda: probe_tax.copy_plain(pad1),
+        plain_stack=lambda: probe_tax.copy_plain(pad_stack),
+        clone=lambda: pad1.clone(), clone_stack=lambda: pad_stack.clone(),
+        wrapper=lambda: probe_tax.identity_copy_cuda(off),
+        wrapper_stack=lambda: probe_compose4.identity_copy_stack_cuda(off))
+    replayed = collections.Counter()
+    dev = {k: graph_ms(torch, fn, replayed) for k, fn in dev.items()}
+    emit("identity_time", values=off.numel(), padded_values=pad1.numel(),
+         event_ms=dict(kernel=t8_ms, kernel_stack=t7_ms,
+                       wrapper=t8_wrapper_ms, wrapper_stack=t7_wrapper_ms,
+                       clone=clone_ms, clone_stack=clone_stack_ms),
+         device_ms=dev,
+         note="kernel: the copy of the padded array alone; wrapper: padding, "
+              "copy and slice; plain = clone; event_ms brackets the host's "
+              "path too, device_ms replays 20 calls in a CUDA graph")
+    t9 = dict(kernel=lambda: probe_mmt3.mmt3_cuda(w, b),
+              plain=lambda: probe_mmt3.mmt3_plain(w, b),
+              library=lambda: probe_mmt3.mmt3_library(w, b))
+    t9_event = {k: timing.median_ms(fn, TOOL_REPS) for k, fn in t9.items()}
+    t9_dev = {k: graph_ms(torch, fn, replayed) for k, fn in t9.items()}
+    emit("probe_mmt3", event_ms=t9_event, device_ms=t9_dev,
+         library_call="torch.matmul(w, b[:7].T), TF32 off",
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+
+    # ---- plain times and bounds
+    t5_args = ("base", rec, tile_of, chunk_of, first, n_tiles)
+    t5_plain_ms = timing.median_ms(
+        lambda: micro_floor.micro_floor_visit_plain(*t5_args), 1)
+    map128 = micro_floor.linear_tile_map(rec.shape[1] // 128, n_tiles,
+                                         "cuda")
+    t6_plain_ms = timing.median_ms(
+        lambda: micro_floor.micro_floor_linear_plain(128, rec, map128,
+                                                     n_tiles), 1)
+    chunk_bytes = micro_floor.REC * micro_floor.S * 4
+    block_bytes = micro_floor.PIX * micro_floor.CH * 4
+    adds = first >= 0
+    chunks_read = int(torch.unique(chunk_of[adds]).numel())
+    # T5 base: each chunk a step adds read once, the three visit arrays,
+    # both outputs written once; one add per element read
+    t5_bytes = (chunks_read * chunk_bytes + 3 * 4 * vcap
+                + 2 * n_tiles * block_bytes)
+    t5_bound, t5_by = bound(t5_bytes, int(adds.sum()) * chunk_bytes // 4)
+    # T6 at sb 128: the whole record array, tile_map, the output
+    t6_bytes = rec.numel() * 4 + 4 * map128.numel() + n_tiles * block_bytes
+    t6_bound, t6_by = bound(t6_bytes, rec.numel())
+    t7_bound, t7_by = bound(2 * 4 * pad_stack.numel(), 0)
+    t8_bound, t8_by = bound(2 * 4 * pad1.numel(), 0)
+    # T9: w and b read, four outputs written; the truth's f32 products and
+    # sums, and 3 ways x 3 passes of 2·512·8·128 bf16 tensor-core ops
+    t9_bytes = 4 * (w.numel() + b.numel() + 4 * 512 * 7)
+    t9_ops_ms = (2 * 512 * 7 * 128 / F32_OPS_PER_S
+                 + 9 * 2 * 512 * 8 * 128 / BF16_OPS_PER_S) * 1e3
+    t9_bytes_ms = t9_bytes / HBM_BYTES_PER_S * 1e3
+    t9_bound = max(t9_bytes_ms, t9_ops_ms)
+    t9_by = "bytes" if t9_bytes_ms >= t9_ops_ms else "operations"
+    torch.cuda.synchronize()
+    # every launch of the group: the checks against the plain versions,
+    # the probes' path and the timings, and the CUDA graphs' replays
+    launches = {k: checks.get(k, 0) + cuda_lib.launch_counts[k] + replayed[k]
+                for k in keys}
+    emit("probes_summary", seconds=time.perf_counter() - t_start,
+         t5_bytes=t5_bytes, t5_chunks_read=chunks_read, t6_bytes=t6_bytes,
+         t9_bytes=t9_bytes, tool_launches=launches,
+         graph_replay_launches={k: replayed[k] for k in keys},
+         within_tolerance=all_ok)
+    if not all_ok:
+        raise AssertionError("a probe's kernel disagrees with its plain "
+                             "version, or the probes' path failed")
+    # T5's ms walks every step, so the block of tile 0 walks the ~9,280
+    # padding steps alone after the others; ms_real_steps leaves them out
+    # of the CSR (the same outputs), and csr_ms is the CSR's build
+    rows["T5"] = dict(ms=floor["base"]["ms"], plain_ms=t5_plain_ms,
+                      ms_real_steps=floor["base"]["ms_real_steps"],
+                      csr_ms=floor["base"]["csr_ms"],
+                      bound_ms=t5_bound, bound_by=t5_by,
+                      max_abs_err=floor_res["base"]["max_abs_err"],
+                      library_ms=None, key="micro_floor_visit")
+    rows["T6"] = dict(ms=floor["linear_sb128"]["ms"], plain_ms=t6_plain_ms,
+                      bound_ms=t6_bound, bound_by=t6_by,
+                      max_abs_err=floor_res["linear_sb128"]["max_abs_err"],
+                      library_ms=None, key="micro_floor_linear")
+    # T7-T9 are launch-bound: their rows give device times
+    rows["T7"] = dict(ms=dev["kernel_stack"], plain_ms=dev["plain_stack"],
+                      bound_ms=t7_bound, bound_by=t7_by, max_abs_err=0.0,
+                      library_ms=dev["clone_stack"], key="identity_stack")
+    rows["T8"] = dict(ms=dev["kernel"], plain_ms=dev["plain"],
+                      bound_ms=t8_bound, bound_by=t8_by, max_abs_err=0.0,
+                      library_ms=dev["clone"], key="identity")
+    rows["T9"] = dict(ms=t9_dev["kernel"], plain_ms=t9_dev["plain"],
+                      bound_ms=t9_bound, bound_by=t9_by, max_abs_err=t9_abs,
+                      library_ms=t9_dev["library"], key="mmt3")
+    for r in rows.values():
+        r["launches"] = path[r["key"]]
+        r["tool_launches"] = launches[r["key"]]
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1641,6 +1971,9 @@ def main():
     # ---- 9. the measurement tools
     tools = tool_phases(torch, k2[6]["args"], late["args"], k2[6])
 
+    # ---- 10. the probes T5-T9
+    probes = probe_phases(torch)
+
     # ---- 8. kernels; launches are those of the training main path, and
     # of the late path for the gated variants
     k1g, k2g = late["k1"], late["k2"]
@@ -1709,6 +2042,30 @@ def main():
             tool_launches=r["tool_launches"], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r.get("library_ms")))
+    # T5-T9: launches are those of the probes' path in phase group 10 (each
+    # tool's entry points once), tool_launches all of the group's, CUDA-graph
+    # replays included; ms is T5's base variant and T6 at sb 128 (CUDA
+    # events), the device time of the copies of the street's padded
+    # tile_offsets and of T9 (every variant in the lines of phase group 10)
+    for key, name, source, replaces in (
+            ("T5", "T5 micro_floor visit-stream floor",
+             csrc + "micro_floor.cu", "tools/micro_floor.py:115"),
+            ("T6", "T6 micro_floor linear walk", csrc + "micro_floor.cu",
+             "tools/micro_floor.py:149"),
+            ("T7", "T7 probe_compose4 identity of a stack",
+             csrc + "identity.cu", "tools/probe_compose4.py:51"),
+            ("T8", "T8 probe_tax identity", csrc + "identity.cu",
+             "tools/probe_tax.py:75"),
+            ("T9", "T9 probe_mmt3 split-precision contraction",
+             csrc + "mmt3.cu", "tools/probe_mmt3.py:56")):
+        r = probes[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=r["launches"], tool_launches=r["tool_launches"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+            **{k: r[k] for k in ("ms_real_steps", "csr_ms") if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -40,7 +40,9 @@ launch_counts = {"blend_fwd": 0, "blend_bwd": 0, "expand": 0,
                  "blend_fwd_gated": 0, "blend_bwd_gated": 0,
                  # the measurement tools (streetunveiler_torch/tools/)
                  "bisect_fwd": 0, "bisect_bwd": 0, "micro_reduce": 0,
-                 "micro_prefix": 0}
+                 "micro_prefix": 0, "micro_floor_visit": 0,
+                 "micro_floor_linear": 0, "identity": 0,
+                 "identity_stack": 0, "mmt3": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -166,6 +168,14 @@ def load_library() -> ctypes.CDLL:
             lib.su_micro_prefix.argtypes = [i32, vp, ctypes.c_longlong, i32,
                                             vp, i32, vp]
             lib.su_micro_prefix.restype = i32
+            lib.su_micro_floor.argtypes = [i32, i32, vp, ctypes.c_longlong,
+                                           vp, vp, i32, vp, vp, vp, vp, i32,
+                                           vp]
+            lib.su_micro_floor.restype = i32
+            lib.su_identity.argtypes = [vp, vp, ctypes.c_longlong, i32, vp]
+            lib.su_identity.restype = i32
+            lib.su_mmt3.argtypes = [vp, vp, vp, vp, vp, vp, i32, vp]
+            lib.su_mmt3.restype = i32
             lib.su_error_string.argtypes = [i32]
             lib.su_error_string.restype = ctypes.c_char_p
             _lib = lib

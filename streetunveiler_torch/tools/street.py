@@ -5,7 +5,9 @@ walls, clutter; splats projecting to ~4-10 px at f = 1000), from a numpy
 seed. ``street_stream`` bins it at 1920x1280 and gathers the blend's
 records as the main path does: the photometric step's stream (nq 6, no
 gated chains) or the late step's (nq 12 with the one-hot semantics, and
-G = 5 gated chains for every class but sky).
+G = 5 gated chains for every class but sky). ``probe_inputs`` is the
+probes' setup: the scene with its colours as the payload, binned and
+gathered once.
 """
 
 from __future__ import annotations
@@ -116,3 +118,54 @@ def street_stream(state, camera, late=False, device="cuda"):
                                b.sorted_surfel)
     nq = kernel.NQ + (0 if extra is None else extra.shape[1])
     return recT, b.tile_offsets, b.tiles_x, b.tiles_y, settings, nq, n_gates
+
+
+def probe_inputs(n=N_SURFELS, width=W, height=H, focal=FOCAL, scale=1.0,
+                 device="cuda"):
+    """The setup of ``tools/probe_tax.py:build`` and
+    ``tools/probe_compose4.py:main``: the street's surfels (their colours
+    as the payload, the splats' scales times ``scale``) preprocessed from
+    the identity pose, binned at the default duplicate capacity with at
+    most 64 tiles per surfel, and their records gathered. Returns a
+    namespace with the preprocess outputs the binning reads (``pre``:
+    center2d, ext, depth, valid, cull), ``packT0``, ``binning``, ``recT0``,
+    ``settings``, ``cap``, ``width``, ``height``, ``tiles_x``, ``tiles_y``.
+    ``bin_stream(ctx)`` bins it again."""
+    from types import SimpleNamespace
+    from streetunveiler_torch.ops.rasterizer import RasterizeSettings, kernel
+    from streetunveiler_torch.ops.rasterizer.api import (
+        _gather_records, default_duplicate_capacity)
+    from streetunveiler_torch.ops.rasterizer.preprocess import \
+        preprocess_surfels
+    pts, scales, quats, opac, cols, _ = build_scene(n)
+    scales = scales * np.float32(scale)
+    args = [torch.as_tensor(a, device=device)
+            for a in (pts, scales, quats, opac, cols)]
+    K = torch.tensor([[focal, 0, width / 2], [0, focal, height / 2],
+                      [0, 0, 1]], dtype=torch.float32, device=device)
+    settings = RasterizeSettings(width=width, height=height, znear=0.2,
+                                 zfar=100.0)
+    with torch.no_grad():
+        sur = preprocess_surfels(*args, torch.eye(4, device=device), K,
+                                 settings)
+        ctx = SimpleNamespace(
+            pre=(sur.center2d, sur.ext, sur.depth, sur.valid, sur.cull),
+            packT0=kernel.pack_geometry_T(sur, n), settings=settings,
+            cap=default_duplicate_capacity(n, width, height), width=width,
+            height=height)
+        ctx.binning = bin_stream(ctx)
+        ctx.recT0 = _gather_records(ctx.packT0, ctx.binning.sorted_surfel)
+    ctx.tiles_x, ctx.tiles_y = ctx.binning.tiles_x, ctx.binning.tiles_y
+    return ctx
+
+
+def bin_stream(ctx):
+    """``tiles.bin_surfels_stream`` on ``probe_inputs``' surfels, as the
+    probes call it (at most 64 tiles per surfel)."""
+    from streetunveiler_torch.ops.rasterizer import kernel, tiles
+    c2d, ext, depth, valid, cull = ctx.pre
+    with torch.no_grad():
+        return tiles.bin_surfels_stream(c2d, ext, depth, valid, ctx.width,
+                                        ctx.height, kernel.TILE_W,
+                                        kernel.TILE_H, ctx.cap, 64,
+                                        cull=cull)
