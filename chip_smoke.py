@@ -37,7 +37,16 @@ drives the two paths of the port on the 300k-surfel street scene at
   (``probe_mmt3``) against their plain versions; then the probes' path
   (binning → copy → gather → K1 on the street) with the launch counts
   read around it, the laundered blends bit for bit against the
-  unlaundered, and every variant timed.
+  unlaundered, and every variant timed;
+* the redesign (phase group 11): K1 and K2 (``csrc/blend_fwd_sm90.cuh``,
+  ``csrc/blend_bwd_sm90.cuh``) in their six forms (nq 6, nq 12, and G 5
+  at nq 12) bit for bit against their first design
+  (``csrc/blend_fwd.cuh``, ``csrc/blend_bwd.cuh``, the bisection tools'
+  ``full``) on the captured full-width streams, both timed, with bounds,
+  registers, resident blocks and evaluated pairs (``k1_redesign``,
+  ``k2_redesign``); the street's tile lengths (``tile_lengths``); and the
+  kernels' guard against a tile order entry that names no tile
+  (``tile_order_guard``).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last two lines are the kernels table and
@@ -216,21 +225,24 @@ def check_blend(torch, acc, lk, want_acc, want_lk, nq, label, n_gates=0,
 
 class capture_blend_backward:
     """Within the block, ``kernel.blend_backward`` (what the blend's
-    autograd backward calls) records its arguments and, with ``plain``,
-    runs the plain version instead of K2 — so one real loss gives K2's
-    exact inputs, and the same loss backpropagated through the plain
-    version gives the reference gradients."""
+    autograd backward calls) records its arguments (``args``, and the
+    binning's tile order as ``order``) and, with ``plain``, runs the plain
+    version instead of K2 — so one real loss gives K2's exact inputs, and
+    the same loss backpropagated through the plain version gives the
+    reference gradients."""
 
     def __init__(self, kernel, plain=False):
-        self.kernel, self.plain, self.args = kernel, plain, None
+        self.kernel, self.plain = kernel, plain
+        self.args = self.order = None
 
     def __enter__(self):
         self.orig = self.kernel.blend_backward
-        fn = self.kernel.blend_backward_plain if self.plain else self.orig
+        plain = self.kernel.blend_backward_plain
 
-        def record(*a):
-            self.args = a
-            return fn(*a)
+        def record(*a, tile_order):
+            self.args, self.order = a, tile_order
+            return plain(*a) if self.plain else self.orig(
+                *a, tile_order=tile_order)
         self.kernel.blend_backward = record
         return self
 
@@ -268,12 +280,26 @@ def loss_grads(torch, state, cam, gt, bg, opt, iteration, cap,
     return loss.detach(), dict(zip(inputs, grads)), aux
 
 
-def k2_ops(counts, nq):
-    """K2's f32 operations on one call's data (csrc/blend_bwd.cuh's note):
-    the recompute of every evaluated pair, the main chain's scan of each
-    pair it kept, a gated chain's scan of each pair it kept, and the pair
-    VJP with the 14 sums of each pair some chain kept."""
-    return (K2_OPS_EVALUATED * counts["evaluated"]
+# the plain versions' count of the pairs the kernels evaluate (their exact
+# skips applied); "evaluated" is the first design's, which the bounds'
+# ``..._first_design_pairs`` fields count
+EVALUATED = "evaluated_skip_rule"
+
+
+def k1_ops(counts, evaluated=EVALUATED):
+    """K1's f32 operations on one call's data (csrc/blend_fwd_sm90.cuh's
+    note): the composite of every evaluated pair and a gated chain's
+    composite of each pair it kept."""
+    return (K1_OPS_PER_PAIR * counts[evaluated]
+            + K1_OPS_GATED_KEPT * counts["gated_kept"])
+
+
+def k2_ops(counts, nq, evaluated=EVALUATED):
+    """K2's f32 operations on one call's data (csrc/blend_bwd_sm90.cuh's
+    note): the recompute of every evaluated pair, the main chain's scan of
+    each pair it kept, a gated chain's scan of each pair it kept, and the
+    pair VJP with the 14 sums of each pair some chain kept."""
+    return (K2_OPS_EVALUATED * counts[evaluated]
             + (K2_OPS_SCAN + K2_OPS_KEPT_CHANNEL * nq) * counts["kept"]
             + K2_OPS_SCAN * counts["gated_kept"]
             + K2_OPS_VJP * counts["any_kept"])
@@ -286,13 +312,37 @@ def bound(nbytes, ops):
     return max(b_ms, o_ms), "operations" if o_ms >= b_ms else "bytes"
 
 
+def k1_bytes(a, acc, lk):
+    """What K1 reads and writes on the blend arguments ``a``: every record
+    row of the stream's filled slots, the offsets, the accumulator and lk
+    (the bytes of the k1_vs_plain_gated lines)."""
+    recT, off = a[0], a[1]
+    return 4 * (recT.shape[0] * int(off[-1]) + off.numel() + acc.numel()
+                + lk.numel())
+
+
+def k2_bytes(kernel, a):
+    """What K2 reads (csrc/blend_bwd_sm90.cuh) and writes on the backward
+    arguments ``a``: record rows 0..9+nq and the gate row of each filled
+    slot; of acc, α and each (α_g, lk_g); of dacc, the payload, α, depth,
+    m1 and m2 cotangents and each (α_g, m1_g, m2_g); lk; all of dgrad."""
+    recT, off, _, _, _, _, lk, _, nq, n_gates = a
+    rec, capp = recT.shape
+    pix = lk.numel()
+    return 4 * ((kernel.Q_ROW0 + nq + (1 if n_gates else 0)) * int(off[-1])
+                + off.numel() + pix * (1 + 2 * n_gates) + pix
+                + pix * (nq + 4 + 3 * n_gates) + rec * capp)
+
+
 def check_k2(torch, kernel, a, g_k2, g_plain, label, reps=20, **fields):
     """K2 against its plain version on the captured arguments ``a`` of a
     real loss's backward: per record row, then per surfel (the loss's
     gradients through K2 against those through the plain version, after
     the record scatter). Times both and bounds K2 on these inputs."""
+    from streetunveiler_torch.ops.rasterizer import tiles
     recT, off, _, _, _, _, lk, _, nq, n_gates = a
-    got = kernel.blend_backward_cuda(*a)
+    order = tiles.tile_order(off)   # the binning's work, outside the time
+    got = kernel.blend_backward_cuda(*a, tile_order=order)
     want, counts = kernel.blend_backward_plain(*a, count_pairs=True)
     torch.cuda.synchronize()
     row_scale = want.abs().amax(dim=1)
@@ -309,20 +359,15 @@ def check_k2(torch, kernel, a, g_k2, g_plain, label, reps=20, **fields):
                             max_abs_err=float((gk - gp).abs().max()),
                             finite=bool(torch.isfinite(gk).all()),
                             within_tolerance=ok)
-    ms = cuda_ms(torch, lambda: kernel.blend_backward_cuda(*a), reps)
+    ms = cuda_ms(torch, lambda: kernel.blend_backward_cuda(
+        *a, tile_order=order), reps)
     plain_ms = cuda_ms(torch, lambda: kernel.blend_backward_plain(*a), 1)
-    rec, capp = recT.shape
+    rec = recT.shape[0]
     filled = int(off[-1])
-    # what K2 reads (csrc/blend_bwd.cuh) and writes: record rows 0..9+nq
-    # and the gate row of each filled slot; of acc, α and each (α_g, lk_g);
-    # of dacc, the payload, α, depth, m1 and m2 cotangents and each
-    # (α_g, m1_g, m2_g); lk; all of dgrad
-    pix = lk.numel()
-    nbytes = 4 * ((kernel.Q_ROW0 + nq + (1 if n_gates else 0)) * filled
-                  + off.numel() + pix * (1 + 2 * n_gates) + pix
-                  + pix * (nq + 4 + 3 * n_gates) + rec * capp)
+    nbytes = k2_bytes(kernel, a)
     ops = k2_ops(counts, nq)
     bound_ms, bound_by = bound(nbytes, ops)
+    first_bound = bound(nbytes, k2_ops(counts, nq, "evaluated"))[0]
     ok = (rows_ok and bool(torch.isfinite(got).all())
           and all(v["within_tolerance"] and v["finite"]
                   for v in surfel.values()))
@@ -330,18 +375,20 @@ def check_k2(torch, kernel, a, g_k2, g_plain, label, reps=20, **fields):
          row_max_abs_err_rel=row_err, row_tolerance_rel=ROW_TOL_REL,
          per_surfel=surfel, grad_tolerance=dict(atol_rel=GRAD_ATOL_REL,
                                                 rtol=GRAD_RTOL),
-         evaluated_pairs=counts["evaluated"], kept_pairs=counts["kept"],
-         gated_kept_pairs=counts["gated_kept"],
+         evaluated_pairs=counts[EVALUATED],
+         evaluated_pairs_first_design=counts["evaluated"],
+         kept_pairs=counts["kept"], gated_kept_pairs=counts["gated_kept"],
          vjp_pairs=counts["any_kept"], duplicates=filled, ms=ms,
          plain_ms=plain_ms, bytes=nbytes, operations=ops,
          bound_ms_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
-         bound_ms_ops=ops / F32_OPS_PER_S * 1e3, **fields,
+         bound_ms_ops=ops / F32_OPS_PER_S * 1e3,
+         bound_ms_first_design_pairs=first_bound, **fields,
          within_tolerance=ok)
     if not ok:
         raise AssertionError(f"{label}: K2 disagrees with its plain version")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, counts=counts,
-                max_abs_err=float((got - want).abs().max()))
+                bound_by=bound_by, bound_ms_first_design_pairs=first_bound,
+                counts=counts, max_abs_err=float((got - want).abs().max()))
 
 
 def k2_vs_plain(torch, kernel, state, cam, gt, gt_sem, bg, cap, opt, nq):
@@ -368,6 +415,7 @@ def gated_vs_plain(torch, kernel, loss_fn, case):
     ``loss_fn()`` → (loss, grads) runs the loss and its gradients; it runs
     twice, its backward through K2, then through the plain version. K1's
     inputs are the forward's records (the captured arguments)."""
+    from streetunveiler_torch.ops.rasterizer import tiles
     with capture_blend_backward(kernel) as cb:
         loss, g_k2 = loss_fn()
     with capture_blend_backward(kernel, plain=True):
@@ -377,31 +425,35 @@ def gated_vs_plain(torch, kernel, loss_fn, case):
     a = tuple(t.detach() if torch.is_tensor(t) else t for t in cb.args)
     recT, off, tx, ty, settings, _, _, _, nq, n_gates = a
     k1_args = (recT, off, tx, ty, settings, nq, n_gates)
-    acc, lk = kernel.blend_forward_cuda(*k1_args)
+    order = tiles.tile_order(off)   # the binning's work, outside the time
+    acc, lk = kernel.blend_forward_cuda(*k1_args, tile_order=order)
     want_acc, want_lk, counts = kernel.blend_forward_plain(
         *k1_args, count_pairs=True)
     # the pairs the ungated blend of the same records evaluates
     main_evaluated = kernel.blend_forward_plain(
         *k1_args[:6], count_pairs=True)[2]["evaluated"]
     torch.cuda.synchronize()
-    ms = cuda_ms(torch, lambda: kernel.blend_forward_cuda(*k1_args), 10)
+    ms = cuda_ms(torch, lambda: kernel.blend_forward_cuda(
+        *k1_args, tile_order=order), 10)
     plain_ms = cuda_ms(torch, lambda: kernel.blend_forward_plain(*k1_args),
                        1)
-    nbytes = 4 * (recT.shape[0] * int(off[-1]) + off.numel() + acc.numel()
-                  + lk.numel())
-    ops = (K1_OPS_PER_PAIR * counts["evaluated"]
-           + K1_OPS_GATED_KEPT * counts["gated_kept"])
+    nbytes = k1_bytes(a, acc, lk)
+    ops = k1_ops(counts)
     k1_bound, k1_by = bound(nbytes, ops)
+    first_bound = bound(nbytes, k1_ops(counts, "evaluated"))[0]
     k1_err = check_blend(
         torch, acc, lk, want_acc, want_lk, nq, f"k1_vs_plain_gated_{case}",
-        n_gates, evaluated_pairs=counts["evaluated"],
+        n_gates, evaluated_pairs=counts[EVALUATED],
+        evaluated_pairs_first_design=counts["evaluated"],
         ungated_evaluated_pairs=main_evaluated,
         kept_pairs=counts["kept"], gated_kept_pairs=counts["gated_kept"],
         duplicates=int(off[-1]), ms=ms, plain_ms=plain_ms, bytes=nbytes,
-        operations=ops, bound_ms=k1_bound)
+        operations=ops, bound_ms=k1_bound,
+        bound_ms_first_design_pairs=first_bound)
     k2 = check_k2(torch, kernel, a, g_k2, g_plain,
                   f"k2_vs_plain_gated_{case}", reps=10, loss=float(loss))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=k1_bound, bound_by=k1_by,
+                bound_ms_first_design_pairs=first_bound,
                 max_abs_err=k1_err, counts=counts,
                 ungated_evaluated=main_evaluated), k2, a
 
@@ -535,7 +587,7 @@ def step_stages(torch, state, cam, cap, bg, gt, opt, it, gt_sem=None,
 
     recT, off, tx, ty, settings, _, _, _, nq, n_gates = a
     k1_args = (recT, off, tx, ty, settings, nq, n_gates)
-    drecT = kernel.blend_backward_cuda(*a)
+    drecT = kernel.blend_backward_cuda(*a, tile_order=b.tile_order)
     idx = b.sorted_surfel
     n_cols = state.capacity + 1
 
@@ -574,9 +626,11 @@ def step_stages(torch, state, cam, cap, bg, gt, opt, it, gt_sem=None,
         binning=cuda_ms(torch, lambda: bin_step(
             state, cam, duplicate_capacity=cap, device="cuda"), 10),
         forward_render=cuda_ms(torch, forward, 10),
-        k1=cuda_ms(torch, lambda: kernel.blend_forward_cuda(*k1_args), 10),
+        k1=cuda_ms(torch, lambda: kernel.blend_forward_cuda(
+            *k1_args, tile_order=b.tile_order), 10),
         losses_fwd_bwd=cuda_ms(torch, losses_fwd_bwd, 10),
-        k2=cuda_ms(torch, lambda: kernel.blend_backward_cuda(*a), 10),
+        k2=cuda_ms(torch, lambda: kernel.blend_backward_cuda(
+            *a, tile_order=b.tile_order), 10),
         record_scatter=cuda_ms(torch, record_scatter, 10),
         preprocess_sh_backward=cuda_ms(torch, preprocess_sh_backward, 10),
         adam=cuda_ms(torch, lambda: adam_update(g_params, o_copy, p_copy,
@@ -865,21 +919,25 @@ def bench_fwd_bwd(torch, state, cam, iters=10):
 
 def ptxas_summary(log):
     """Registers and spills from the build log's ptxas lines: the
-    production instantiations the paths run (every K1, K2 at nq 6, 9 and
-    12, K2 gated at (6, 3) and (12, 5), K3), and every instantiation of the
-    measurement tools (T1<G,variant>, T2<nq,G,variant>, T3 and T4 kernels,
-    T5/T6<width,flags> of csrc/micro_floor.cu, the T7/T8 copy, T9), named
-    by the translation unit that built them."""
+    production instantiations the paths run (K1 and K2 at nq 6, 9 and 12,
+    gated at (6, 3) and (12, 5), as K<nq,G>; K3), and every instantiation
+    of the measurement tools (T1<G,variant>, T2<nq,G,variant>, T3 and T4
+    kernels, T5/T6<width,flags> of csrc/micro_floor.cu, the T7/T8 copy,
+    T9), named by the translation unit that built them."""
     import re
     from streetunveiler_torch.tools import bisect_bwd, bisect_fwd
-    keep = {"K1<%d>" % g for g in range(7)} | {
-        "K2<6,0>", "K2<9,0>", "K2<12,0>", "K2<6,3>", "K2<12,5>", "K3"}
+    keep = {"K1<6,0>", "K1<9,0>", "K1<12,0>", "K1<6,3>", "K1<12,5>",
+            "K2<6,0>", "K2<9,0>", "K2<12,0>", "K2<6,3>", "K2<12,5>", "K3"}
     out, name, unit = {}, None, ""
     for line in log.splitlines():
         if line.startswith("== nvcc "):
             unit = line.split()[2]
         elif "Compiling entry function" in line:
             ints = lambda m: [int(x) for x in m.groups()]
+            fwd90 = re.search(r"blend_fwd_sm90_kernelILi(\d+)ELi(\d+)E",
+                              line)
+            bwd90 = re.search(r"blend_bwd_sm90_kernelILi(\d+)ELi(\d+)E",
+                              line)
             fwd = re.search(r"blend_fwd_kernelILi(\d+)ELi(\d+)E", line)
             bwd = re.search(r"blend_bwd_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
                             line)
@@ -887,17 +945,15 @@ def ptxas_summary(log):
             probe = re.search(r"\d(reduce_[a-z]+|prefix_[a-z]+)(?:ILi(\d+)E)?",
                               line)
             walk = re.search(r"floor_walkILi(\d+)ELi(\d+)E", line)
-            if fwd and unit.startswith("bisect"):
+            if fwd90 or bwd90:
+                q, g = ints(fwd90 or bwd90)
+                name = f"K{1 if fwd90 else 2}<{q},{g}>"
+            elif fwd and unit.startswith("bisect"):
                 g, v = ints(fwd)
                 name = f"T1<{g},{bisect_fwd.VARIANTS[v]}>"
-            elif fwd:
-                name = f"K1<{ints(fwd)[0]}>"
             elif bwd and unit.startswith("bisect"):
                 q, g, v = ints(bwd)
                 name = f"T2<{q},{g},{bisect_bwd.VARIANTS[v]}>"
-            elif bwd:
-                q, g, _ = ints(bwd)
-                name = f"K2<{q},{g}>"
             elif walk:
                 w, flags = ints(walk)
                 name = f"T{6 if flags & 16 else 5}<{w},{flags}>"
@@ -1072,55 +1128,6 @@ T4_OPS_PER_PAIR = 50   # csrc/micro_prefix.cu's serial mode, counted:
 TOOL_REPS = 10
 
 
-def dense_streams(torch):
-    """The dense-occlusion stack of ``dense_gated_loss`` (1,500 mostly
-    opaque surfels at 128×96, the nearest third class 0, the rest classes
-    1-4 at random), binned as ``rasterize`` does: the photometric records
-    (nq 6) and the late ones (nq 12 with the one-hot classes, G = 5 gates).
-    Returns {G: blend arguments}."""
-    import numpy as np
-    import torch.nn.functional as F
-    from streetunveiler_torch.ops.rasterizer import (RasterizeSettings,
-                                                     kernel, tiles)
-    from streetunveiler_torch.ops.rasterizer.api import (
-        _gather_records, default_duplicate_capacity, encode_extra)
-    from streetunveiler_torch.ops.rasterizer.preprocess import \
-        preprocess_surfels
-    rng = np.random.default_rng(0)
-    n, w, h, f = 1500, 128, 96, 110.0
-    z = rng.uniform(2.0, 30.0, n)
-    means = np.stack([rng.uniform(-2.5, 2.5, n), rng.uniform(-2, 2, n), z],
-                     1)
-    cls = np.where(z < np.quantile(z, 1 / 3), 0, rng.integers(1, 5, n))
-    cuda = lambda a: torch.as_tensor(np.asarray(a, np.float32),
-                                     device="cuda")
-    args = [cuda(means), cuda(rng.uniform(0.2, 0.9, (n, 2))),
-            cuda(rng.normal(size=(n, 4))), cuda(rng.uniform(0.5, 0.98, n)),
-            cuda(rng.uniform(0, 1, (n, 3)))]
-    st = RasterizeSettings(width=w, height=h)
-    K = cuda([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]])
-    sur = preprocess_surfels(*args, cuda(np.eye(4)), K, st)
-    b = tiles.bin_surfels_stream(sur.center2d, sur.ext, sur.depth,
-                                 sur.valid, w, h, kernel.TILE_W,
-                                 kernel.TILE_H,
-                                 default_duplicate_capacity(n, w, h),
-                                 cull=sur.cull)
-    if bool(b.overflow):
-        raise AssertionError("the dense stack overflowed its capacity")
-    cls_t = torch.as_tensor(cls, device="cuda")
-    out = {}
-    for late in (False, True):
-        extra = F.one_hot(cls_t, 6).float() if late else None
-        gates = torch.stack([cls_t == g for g in range(5)], 1) if late \
-            else None
-        pack, n_gates = encode_extra(extra, gates)
-        recT = _gather_records(kernel.pack_geometry_T(sur, n, pack),
-                               b.sorted_surfel)
-        out[n_gates] = (recT, b.tile_offsets, b.tiles_x, b.tiles_y, st,
-                        12 if late else 6, n_gates)
-    return out
-
-
 def rel_err(got, want, dims, floor):
     """Largest |got − want| over ``dims`` relative to max(|want|, floor),
     per remaining index; returns the largest."""
@@ -1206,19 +1213,20 @@ def tool_phases(torch, photo_args, late_args, k2_photo):
     captured arguments of the photometric (nq 6) and late (nq 12, G 5)
     backward at full width; ``k2_photo`` K2's line on the former. Returns
     the kernels-line rows."""
-    from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel
+    from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
     from streetunveiler_torch.tools import (bisect_bwd, bisect_fwd,
                                             micro_prefix, micro_reduce,
-                                            timing)
+                                            street, timing)
     cuda_lib.reset_launch_counts()
     t_start = time.perf_counter()
 
     # ---- against the plain versions, on the dense stack
-    dense = dense_streams(torch)
+    dense = street.dense_streams("cuda")
     all_ok = True
     for n_gates, label in ((0, "photometric"), (5, "late")):
         k1_args = dense[n_gates]
-        acc, lk = kernel.blend_forward_cuda(*k1_args)
+        acc, lk = kernel.blend_forward_cuda(
+            *k1_args, tile_order=tiles.tile_order(k1_args[1]))
         nq = k1_args[5]
         a = k1_args[:5] + (acc, lk, bisect_bwd.cotangents(acc, nq, n_gates),
                            nq, n_gates)
@@ -1238,10 +1246,11 @@ def tool_phases(torch, photo_args, late_args, k2_photo):
     for a, label in ((photo_args, "photometric"), (late_args, "late")):
         nq, n_gates = a[8], a[9]
         k1_args = a[:5] + (nq, n_gates)
+        order = tiles.tile_order(a[1])
         acc_t, lk_t = bisect_fwd.bisect_forward_cuda("full", *k1_args)
-        acc_k, lk_k = kernel.blend_forward_cuda(*k1_args)
+        acc_k, lk_k = kernel.blend_forward_cuda(*k1_args, tile_order=order)
         d_t = bisect_bwd.bisect_backward_cuda("full", *a)
-        d_k = kernel.blend_backward_cuda(*a)
+        d_k = kernel.blend_backward_cuda(*a, tile_order=order)
         torch.cuda.synchronize()
         fwd_equal = torch.equal(acc_t, acc_k) and torch.equal(lk_t, lk_k)
         bwd_equal = torch.equal(d_t, d_k)
@@ -1726,6 +1735,172 @@ def probe_phases(torch):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase group 11: the redesigned K1 and K2 (csrc/blend_fwd_sm90.cuh,
+# csrc/blend_bwd_sm90.cuh) against their first design (csrc/blend_fwd.cuh,
+# csrc/blend_bwd.cuh, as the bisection tools' `full` variant), on the
+# captured full-width streams of the photometric and the late step.
+
+REDESIGN_REPS = 10
+# the acceptance ratio of each form's time to the first design's
+REDESIGN_TARGET = {("k1", "photometric"): 1.03, ("k1", "semantic"): 1.03,
+                   ("k1", "late"): 0.85, ("k2", "photometric"): 1.03,
+                   ("k2", "semantic"): 1.03, ("k2", "late"): 0.75}
+
+
+def tile_lengths(torch, off):
+    """Duplicates per tile of one binning's CSR offsets."""
+    n = (off[1:] - off[:-1]).double()
+    q = torch.quantile(n, torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                       device=n.device))
+    total = float(n.sum())
+    return dict(tiles=n.numel(), empty_tiles=int((n == 0).sum()),
+                duplicates=int(total), max=int(n.max()), p99=float(q[1]),
+                p50=float(q[0]), mean=float(n.mean()),
+                longest_share=float(n.max()) / total)
+
+
+def tile_order_guard(torch, a):
+    """K1 and K2 on the blend arguments ``a`` with the binning's order
+    and with its first entry (the longest tile) replaced by one past the
+    last tile: that block leaves its tile, every other tile comes out bit
+    for bit as with the binning's order, and K2 gives the left tile's
+    duplicates no gradient."""
+    from streetunveiler_torch.ops.rasterizer import kernel, tiles
+    recT, off, tx, ty, settings, _, _, _, nq, n_gates = a
+    order = tiles.tile_order(off)
+    bad = order.clone()
+    bad[0] = order.numel()
+    left = int(order[0])
+    k1_args = a[:5] + (nq, n_gates)
+    acc, lk = kernel.blend_forward_cuda(*k1_args, tile_order=order)
+    acc_b, lk_b = kernel.blend_forward_cuda(*k1_args, tile_order=bad)
+    d = kernel.blend_backward_cuda(*a, tile_order=order)
+    d_b = kernel.blend_backward_cuda(*a, tile_order=bad)
+    torch.cuda.synchronize()
+    rest = torch.arange(order.numel(), device=off.device) != left
+    lo, hi = int(off[left]), int(off[left + 1])
+    k1_ok = torch.equal(acc[rest], acc_b[rest]) and torch.equal(lk[rest],
+                                                                lk_b[rest])
+    k2_ok = (torch.equal(d[:, :lo], d_b[:, :lo])
+             and torch.equal(d[:, hi:], d_b[:, hi:])
+             and not bool(d_b[:, lo:hi].any()))
+    emit("tile_order_guard", nq=nq, n_gates=n_gates, left_tile=left,
+         left_duplicates=hi - lo, k1_other_tiles_equal=k1_ok,
+         k2_equal_and_left_tile_zero=k2_ok)
+    return k1_ok and k2_ok
+
+
+def redesign_phases(torch, photo_args, sem_args, late_args, ptxas):
+    """Each of the six forms (K1 and K2 at nq 6, at nq 12 — the semantic
+    step's — and gated at (12, 5)) on the same captured inputs: bit for bit
+    against the first design, both timed (median of REDESIGN_REPS
+    CUDA-event times, in the turns first, new, new, first), the bound on
+    the pairs the redesign evaluates (and on the first design's), ptxas'
+    registers and spills, resident blocks per SM, and the pairs each design
+    evaluates (the plain versions' counts). Before them, the kernels'
+    guard against an order entry that names no tile. Returns the first
+    design's times and the checks' verdict."""
+    from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
+    from streetunveiler_torch.tools import bisect_bwd, bisect_fwd, timing
+
+    off = late_args[1]
+    order_ok = torch.equal(tiles.tile_order(off).cpu(),
+                           tiles.tile_order(off.cpu()))
+    emit("tile_lengths", **tile_lengths(torch, off),
+         tile_order_on_card_equals_cpu=order_ok,
+         note="duplicates per 16x32 tile of the late step's binning "
+              "(street-300k-1920x1280); longest_share = max / duplicates")
+    guard_ok = tile_order_guard(torch, photo_args)
+
+    def timed(old, new):
+        t = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old"):
+            fn = old if which == "old" else new
+            t[which].append(timing.median_ms(fn, REDESIGN_REPS))
+        return statistics.mean(t["old"]), statistics.mean(t["new"]), t
+
+    lines = {"k1": {}, "k2": {}}
+    first, ok = {}, order_ok and guard_ok
+    for a, label in ((photo_args, "photometric"), (sem_args, "semantic"),
+                     (late_args, "late")):
+        nq, n_gates = a[8], a[9]
+        k1_args = a[:5] + (nq, n_gates)
+        order = tiles.tile_order(a[1])
+        target = {k: REDESIGN_TARGET[k, label] for k in ("k1", "k2")}
+
+        # ---- K1
+        new = lambda: kernel.blend_forward_cuda(*k1_args, tile_order=order)
+        old = lambda: bisect_fwd.bisect_forward_cuda("full", *k1_args)
+        acc_n, lk_n = new()
+        acc_o, lk_o = old()
+        torch.cuda.synchronize()
+        exact = torch.equal(acc_n, acc_o) and torch.equal(lk_n, lk_o)
+        counts = kernel.blend_forward_plain(*k1_args, count_pairs=True)[2]
+        ms_old, ms_new, t = timed(old, new)
+        nbytes = k1_bytes(a, acc_n, lk_n)
+        ops = {k: k1_ops(counts, k) for k in ("evaluated", EVALUATED)}
+        del acc_n, lk_n, acc_o, lk_o
+        lines["k1"][label] = dict(
+            nq=nq, n_gates=n_gates, bit_exact=exact, ms_first_design=ms_old,
+            ms=ms_new, ratio=ms_new / ms_old, target_ratio=target["k1"],
+            meets_target=ms_new <= target["k1"] * ms_old, ms_runs=t,
+            bytes=nbytes, operations=ops[EVALUATED],
+            bound_ms=bound(nbytes, ops[EVALUATED])[0],
+            operations_first_design_pairs=ops["evaluated"],
+            bound_ms_first_design_pairs=bound(nbytes, ops["evaluated"])[0],
+            evaluated_pairs_first_design=counts["evaluated"],
+            evaluated_pairs=counts[EVALUATED],
+            kept_pairs=counts["kept"], gated_kept_pairs=counts["gated_kept"],
+            ptxas=ptxas.get(f"K1<{nq},{n_gates}>"),
+            ptxas_first_design=ptxas.get(f"T1<{n_gates},full>"),
+            blocks_per_sm=cuda_lib.occupancy("blend_fwd", nq, n_gates),
+            blocks_per_sm_first_design=cuda_lib.occupancy("bisect_fwd", nq,
+                                                          n_gates))
+        first[("k1", label)] = ms_old
+        ok = ok and exact
+
+        # ---- K2, a fresh zeroed dgrad in each call of both designs
+        new = lambda: kernel.blend_backward_cuda(*a, tile_order=order)
+        old = lambda: bisect_bwd.bisect_backward_cuda("full", *a)
+        d_n, d_o = new(), old()
+        torch.cuda.synchronize()
+        exact = torch.equal(d_n, d_o)
+        del d_n, d_o
+        counts = kernel.blend_backward_plain(*a, count_pairs=True)[1]
+        ms_old, ms_new, t = timed(old, new)
+        nbytes = k2_bytes(kernel, a)
+        ops = {k: k2_ops(counts, nq, k) for k in ("evaluated", EVALUATED)}
+        lines["k2"][label] = dict(
+            nq=nq, n_gates=n_gates, bit_exact=exact, ms_first_design=ms_old,
+            ms=ms_new, ratio=ms_new / ms_old, target_ratio=target["k2"],
+            meets_target=ms_new <= target["k2"] * ms_old, ms_runs=t,
+            bytes=nbytes, operations=ops[EVALUATED],
+            bound_ms=bound(nbytes, ops[EVALUATED])[0],
+            operations_first_design_pairs=ops["evaluated"],
+            bound_ms_first_design_pairs=bound(nbytes, ops["evaluated"])[0],
+            evaluated_pairs_first_design=counts["evaluated"],
+            evaluated_pairs=counts[EVALUATED],
+            kept_pairs=counts["kept"], gated_kept_pairs=counts["gated_kept"],
+            vjp_pairs=counts["any_kept"],
+            ptxas=ptxas.get(f"K2<{nq},{n_gates}>"),
+            ptxas_first_design=ptxas.get(f"T2<{nq},{n_gates},full>"),
+            blocks_per_sm=cuda_lib.occupancy("blend_bwd", nq, n_gates),
+            blocks_per_sm_first_design=cuda_lib.occupancy("bisect_bwd", nq,
+                                                          n_gates))
+        first[("k2", label)] = ms_old
+        ok = ok and exact
+    note = ("first design = csrc/blend_*.cuh as the bisection tools' full "
+            "variant; ms = mean of the medians of two runs of "
+            f"{REDESIGN_REPS} CUDA-event times each (ms_runs, in the turns "
+            "first, new, new, first); K2 with a fresh zeroed dgrad in both; "
+            "bound_ms counts the pairs the redesign evaluates, "
+            "bound_ms_first_design_pairs those the first design evaluates")
+    emit("k1_redesign", forms=lines["k1"], note=note)
+    emit("k2_redesign", forms=lines["k2"], note=note)
+    return dict(first=first, ok=ok)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1766,9 +1941,9 @@ def main():
     t0 = time.perf_counter()
     cuda_lib.load_library()
     build_s = time.perf_counter() - t0
+    ptxas = ptxas_summary(cuda_lib.build_log())
     emit("build", seconds=build_s, library=os.path.relpath(
-        cuda_lib.library_path(), ROOT),
-        ptxas=ptxas_summary(cuda_lib.build_log()))
+        cuda_lib.library_path(), ROOT), ptxas=ptxas)
 
     # ---- small-input reference: tiled path on the card vs untiled oracle
     args, w2c, K = small_scene(torch)
@@ -1880,10 +2055,11 @@ def main():
     recT = _gather_records(packT, binning.sorted_surfel)
     off = binning.tile_offsets
     k1_args = (recT, off, binning.tiles_x, binning.tiles_y, settings, 6)
-    acc, lk = kernel.blend_forward_cuda(*k1_args)
+    acc, lk = kernel.blend_forward_cuda(*k1_args,
+                                        tile_order=binning.tile_order)
     want_acc, want_lk, counts = kernel.blend_forward_plain(
         *k1_args, count_pairs=True)
-    pairs = counts["evaluated"]
+    pairs = counts[EVALUATED]
     torch.cuda.synchronize()
     k1_err = check_blend(torch, acc, lk, want_acc, want_lk, 6,
                          "k1_vs_plain_nq6")
@@ -1892,21 +2068,24 @@ def main():
                                                    onehot[:, 3:6]),
                             binning.sorted_surfel)
     k1_9 = (recT9, off, binning.tiles_x, binning.tiles_y, settings, 9)
-    acc9, lk9 = kernel.blend_forward_cuda(*k1_9)
+    acc9, lk9 = kernel.blend_forward_cuda(*k1_9,
+                                          tile_order=binning.tile_order)
     want9 = kernel.blend_forward_plain(*k1_9)
     torch.cuda.synchronize()
     k1_err = max(k1_err, check_blend(torch, acc9, lk9, *want9, 9,
                                      "k1_vs_plain_nq9"))
-    k1_ms = cuda_ms(torch, lambda: kernel.blend_forward_cuda(*k1_args), 20)
+    k1_ms = cuda_ms(torch, lambda: kernel.blend_forward_cuda(
+        *k1_args, tile_order=binning.tile_order), 20)
     k1_plain_ms = cuda_ms(torch,
                           lambda: kernel.blend_forward_plain(*k1_args), 1)
     # records: only the stream's filled slots are read
-    k1_bytes = 4 * (recT.shape[0] * min(demand, cap) + off.numel()
+    k1_nbytes = 4 * (recT.shape[0] * min(demand, cap) + off.numel()
                     + acc.numel() + lk.numel())
-    k1_bound_bytes = k1_bytes / HBM_BYTES_PER_S * 1e3
-    k1_bound_ops = K1_OPS_PER_PAIR * pairs / F32_OPS_PER_S * 1e3
+    k1_bound_bytes = k1_nbytes / HBM_BYTES_PER_S * 1e3
+    k1_bound_ops = k1_ops(counts) / F32_OPS_PER_S * 1e3
     emit("k1_time", ms=k1_ms, plain_ms=k1_plain_ms, duplicates=demand,
-         evaluated_pairs=pairs, bytes=k1_bytes, bound_ms_bytes=k1_bound_bytes,
+         evaluated_pairs=pairs, bytes=k1_nbytes,
+         bound_ms_bytes=k1_bound_bytes,
          bound_ms_ops=k1_bound_ops)
 
     # ---- 5b. the slice at full width: frame time and stages
@@ -1974,9 +2153,20 @@ def main():
     # ---- 10. the probes T5-T9
     probes = probe_phases(torch)
 
+    # ---- 11. the redesigned K1 and K2 against their first design
+    redesign = redesign_phases(torch, k2[6]["args"], k2[12]["args"],
+                               late["args"], ptxas)
+    if not redesign["ok"]:
+        raise AssertionError("a redesigned blend kernel differs from its "
+                             "first design or failed its order guard, or "
+                             "the tile order differs from its plain "
+                             "version")
+    first = redesign["first"]
+
     # ---- 8. kernels; launches are those of the training main path, and
     # of the late path for the gated variants
     k1g, k2g = late["k1"], late["k2"]
+    csrc = "streetunveiler_torch/ops/rasterizer/csrc/"
     kernels = [
         dict(name="K3 tile expansion", route="cuda",
              source="streetunveiler_torch/ops/rasterizer/csrc/expand.cu",
@@ -1987,43 +2177,48 @@ def main():
              >= K3_OPS_PER_SLOT * capp / F32_OPS_PER_S else "operations",
              library_ms=None),
         dict(name="K1 blend forward", route="cuda",
-             source="streetunveiler_torch/ops/rasterizer/csrc/blend_fwd.cu",
+             source=csrc + "blend_fwd_sm90.cuh",
              replaces="streetunveiler_tpu/ops/rasterizer/kernel.py:217",
              launches=train_launches["blend_fwd"], max_abs_err=k1_err,
-             ms=k1_ms, plain_ms=k1_plain_ms,
+             ms=k1_ms, ms_first_design=first["k1", "photometric"],
+             plain_ms=k1_plain_ms,
              bound_ms=max(k1_bound_bytes, k1_bound_ops),
              bound_by="operations" if k1_bound_ops >= k1_bound_bytes
              else "bytes", library_ms=None),
         dict(name="K2 blend backward", route="cuda",
-             source="streetunveiler_torch/ops/rasterizer/csrc/blend_bwd.cuh",
+             source=csrc + "blend_bwd_sm90.cuh",
              replaces="streetunveiler_tpu/ops/rasterizer/kernel.py:406",
              launches=train_launches["blend_bwd"],
              max_abs_err=max(k2[6]["max_abs_err"], k2[12]["max_abs_err"]),
-             ms=k2[6]["ms"], plain_ms=k2[6]["plain_ms"],
+             ms=k2[6]["ms"], ms_first_design=first["k2", "photometric"],
+             plain_ms=k2[6]["plain_ms"],
              bound_ms=k2[6]["bound_ms"], bound_by=k2[6]["bound_by"],
              library_ms=None),
         dict(name="K1 blend forward, gated chains (G=5, nq=12)",
              route="cuda",
-             source="streetunveiler_torch/ops/rasterizer/csrc/blend_fwd.cu",
+             source=csrc + "blend_fwd_sm90.cuh",
              replaces="streetunveiler_tpu/ops/rasterizer/kernel.py:332",
              launches=late["launches"]["blend_fwd_gated"],
              max_abs_err=k1g["max_abs_err"], ms=k1g["ms"],
-             plain_ms=k1g["plain_ms"], bound_ms=k1g["bound_ms"],
-             bound_by=k1g["bound_by"], library_ms=None),
+             ms_first_design=first["k1", "late"], plain_ms=k1g["plain_ms"],
+             bound_ms=k1g["bound_ms"], bound_by=k1g["bound_by"],
+             bound_ms_first_design_pairs=k1g["bound_ms_first_design_pairs"],
+             library_ms=None),
         dict(name="K2 blend backward, gated chains (G=5, nq=12)",
              route="cuda",
-             source="streetunveiler_torch/ops/rasterizer/csrc/blend_bwd.cuh",
+             source=csrc + "blend_bwd_sm90.cuh",
              replaces="streetunveiler_tpu/ops/rasterizer/kernel.py:518",
              launches=late["launches"]["blend_bwd_gated"],
              max_abs_err=k2g["max_abs_err"], ms=k2g["ms"],
-             plain_ms=k2g["plain_ms"], bound_ms=k2g["bound_ms"],
-             bound_by=k2g["bound_by"], library_ms=None),
+             ms_first_design=first["k2", "late"], plain_ms=k2g["plain_ms"],
+             bound_ms=k2g["bound_ms"], bound_by=k2g["bound_by"],
+             bound_ms_first_design_pairs=k2g["bound_ms_first_design_pairs"],
+             library_ms=None),
     ]
     # the tools run on no main path: launches 0 there, their own count in
     # tool_launches; ms is T1/T2 full on the photometric stream, T3's
     # thread mode at k 13 and T4's serial mode (every variant and mode in
     # the lines of phase group 9)
-    csrc = "streetunveiler_torch/ops/rasterizer/csrc/"
     for key, name, source, replaces in (
             ("T1", "T1 bisect_fwd variants of K1", csrc + "bisect_fwd.cu",
              "tools/bisect_fwd.py:281"),

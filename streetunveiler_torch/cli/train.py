@@ -7,7 +7,10 @@ train.py``), on the synthetic street scene:
 Runs on the card by default (``--device cpu`` for the CPU). With
 ``--semantics`` the step adds the semantic cross entropy and, past
 ``semantic_dist_from_iter``, the gated per-class distortion; ``--sky``
-trains the sky model jointly (initialised from ``--seed``). Persists
+trains the sky model jointly (initialised from ``--seed``);
+``--detect_anomaly`` runs the training under
+``torch.autograd.set_detect_anomaly``, so that a NaN in the backward
+raises where it appears (the reference's ``train.py:310,325``). Persists
 ``cfg_args.json`` and ``cameras.json`` into the model dir, saves PLYs at
 ``--save_every`` and a resumable ``checkpoint/iteration_N/splatting.npz``
 (the sky included) at the end; ``--start_iteration N`` resumes from one.
@@ -20,6 +23,7 @@ synthetic), multi-device meshes (``--tile_devices``, ``--data_devices``,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -56,6 +60,10 @@ def main(argv=None):
     ap.add_argument("--multihost", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--detect_anomaly", action="store_true",
+                    help="raise on NaN in the backward "
+                         "(torch.autograd.set_detect_anomaly, reference "
+                         "train.py:310,325)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args, rest = ap.parse_known_args(argv)
@@ -136,15 +144,19 @@ def main(argv=None):
         print(line, flush=True)
 
     logger = TrainLogger(os.path.join(args.model_path, "logs"))
+    anomaly = (torch.autograd.set_detect_anomaly(True)
+               if args.detect_anomaly else contextlib.nullcontext())
     try:
-        state, sky_params, reports = train_scene(
-            scene, state, opt, sky_params=sky_params, bg=bg,
-            iterations=iterations,
-            start_iteration=start_iteration, save_iterations=saves,
-            log_every=args.log_every, eval_every=args.eval_every,
-            duplicate_capacity=args.duplicate_capacity or None,
-            use_semantics=args.semantics, seed=args.seed, callback=report,
-            logger=logger, opt_state=opt_state, device=dev)
+        with anomaly:
+            state, sky_params, reports = train_scene(
+                scene, state, opt, sky_params=sky_params, bg=bg,
+                iterations=iterations,
+                start_iteration=start_iteration, save_iterations=saves,
+                log_every=args.log_every, eval_every=args.eval_every,
+                duplicate_capacity=args.duplicate_capacity or None,
+                use_semantics=args.semantics, seed=args.seed,
+                callback=report, logger=logger, opt_state=opt_state,
+                device=dev)
     finally:
         logger.close()
 

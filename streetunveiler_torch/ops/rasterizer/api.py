@@ -88,7 +88,8 @@ def rasterize_stream(recT, radii, settings: RasterizeSettings, binning,
     class's gated distortion.
     """
     acc, _ = blend_stream(recT, binning.tile_offsets, binning.tiles_x,
-                          binning.tiles_y, settings, nq, gates_n)
+                          binning.tiles_y, settings, nq, gates_n,
+                          binning.tile_order)
     ch = ch_for(nq)
     ch_tot = ch + 4 * gates_n
 

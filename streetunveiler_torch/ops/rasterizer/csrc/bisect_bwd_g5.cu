@@ -16,4 +16,15 @@ cudaError_t bisect_bwd_g5(int variant, const float* recT, int cap,
                                dgrad, s);
 }
 
+// The blocks of blend_bwd_kernel<12, 5, kBwdFull> an SM holds at once.
+cudaError_t bisect_bwd_g5_occupancy(int* blocks) {
+  const size_t smem = smem_bytes<12, 5>();
+  cudaError_t err = cudaFuncSetAttribute(
+      blend_bwd_kernel<12, 5, kBwdFull>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, blend_bwd_kernel<12, 5, kBwdFull>, kPix, smem);
+}
+
 }  // namespace su_bwd

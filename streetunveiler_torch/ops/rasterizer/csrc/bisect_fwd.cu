@@ -18,6 +18,7 @@ cudaError_t su_bisect_fwd_g5(int variant, const float* recT, int cap, int nq,
                              int n_tiles, int tiles_x, float znear,
                              float zfar, float t_eps, float* acc, int32_t* lk,
                              cudaStream_t s);
+cudaError_t su_bisect_fwd_g5_occupancy(int nq, int* blocks);
 
 // As su_blend_fwd, with the variant's index (blend_fwd.cuh's FwdVariant);
 // n_gates must be 0 or 5. kFloorNoLk leaves lk unwritten.
@@ -42,4 +43,20 @@ extern "C" int su_bisect_fwd(int variant, const float* recT, int rec,
   return (int)launch_variant<0>(variant, recT, cap, nq, gate_row,
                                 tile_offsets, n_tiles, tiles_x, znear, zfar,
                                 t_eps, acc, lk, s);
+}
+
+// The blocks of the `full` variant (the first design of K1) at
+// (nq, n_gates) one SM holds at once; n_gates must be 0 or 5.
+extern "C" int su_bisect_fwd_occupancy(int nq, int n_gates, int device,
+                                       int* blocks) {
+  if (!fwd_args_ok(kQRow0 + nq + 1, 0, nq, n_gates, kQRow0 + nq, 1) ||
+      (n_gates != 0 && n_gates != 5))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_gates == 5) return (int)su_bisect_fwd_g5_occupancy(nq, blocks);
+  const size_t smem = (size_t)(kGeo + nq + staged_rows_extra<0, kFull>()) *
+                      kBatch * sizeof(float);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, blend_fwd_kernel<0, kFull>, kPix, smem);
 }

@@ -12,3 +12,11 @@ cudaError_t su_bisect_fwd_g5(int variant, const float* recT, int cap, int nq,
   return launch_variant<5>(variant, recT, cap, nq, gate_row, tile_offsets,
                            n_tiles, tiles_x, znear, zfar, t_eps, acc, lk, s);
 }
+
+// The blocks of blend_fwd_kernel<5, kFull> an SM holds at once.
+cudaError_t su_bisect_fwd_g5_occupancy(int nq, int* blocks) {
+  const size_t smem = (size_t)(kGeo + nq + staged_rows_extra<5, kFull>()) *
+                      kBatch * sizeof(float);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, blend_fwd_kernel<5, kFull>, kPix, smem);
+}

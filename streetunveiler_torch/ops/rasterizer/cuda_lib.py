@@ -150,18 +150,25 @@ def load_library() -> ctypes.CDLL:
             lib.su_expand.argtypes = [vp, i32, vp, i32, i32, i32, i32, i32,
                                       i32, vp, vp, i32, vp]
             lib.su_expand.restype = i32
-            lib.su_blend_fwd.argtypes = [vp, i32, i32, i32, i32, i32, vp,
-                                         i32, i32, f32, f32, f32, vp, vp,
-                                         i32, vp]
+            # K1/K2 take tile_order after tile_offsets; their bisection
+            # variants (the first design) do not
+            fwd = [vp, i32, i32, i32, i32, i32, vp, i32, i32, f32, f32, f32,
+                   vp, vp, i32, vp]
+            bwd = [vp, i32, i32, i32, i32, i32, vp, i32, i32, f32, f32, vp,
+                   vp, vp, vp, i32, vp]
+            lib.su_blend_fwd.argtypes = fwd[:7] + [vp] + fwd[7:]
             lib.su_blend_fwd.restype = i32
-            lib.su_blend_bwd.argtypes = [vp, i32, i32, i32, i32, i32, vp,
-                                         i32, i32, f32, f32, vp, vp, vp, vp,
-                                         i32, vp]
+            lib.su_blend_bwd.argtypes = bwd[:7] + [vp] + bwd[7:]
             lib.su_blend_bwd.restype = i32
-            lib.su_bisect_fwd.argtypes = [i32] + lib.su_blend_fwd.argtypes
+            lib.su_bisect_fwd.argtypes = [i32] + fwd
             lib.su_bisect_fwd.restype = i32
-            lib.su_bisect_bwd.argtypes = [i32] + lib.su_blend_bwd.argtypes
+            lib.su_bisect_bwd.argtypes = [i32] + bwd
             lib.su_bisect_bwd.restype = i32
+            for name in ("su_blend_fwd_occupancy", "su_blend_bwd_occupancy",
+                         "su_bisect_fwd_occupancy",
+                         "su_bisect_bwd_occupancy"):
+                getattr(lib, name).argtypes = [i32, i32, i32, vp]
+                getattr(lib, name).restype = i32
             lib.su_micro_reduce.argtypes = [i32, i32, vp, i32, i32, vp, vp,
                                             i32, vp]
             lib.su_micro_reduce.restype = i32
@@ -180,6 +187,18 @@ def load_library() -> ctypes.CDLL:
             lib.su_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def occupancy(entry: str, nq: int, n_gates: int, device: int = 0) -> int:
+    """Blocks of a blend kernel's (nq, n_gates) instantiation that one SM
+    holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``):
+    ``entry`` is ``blend_fwd``/``blend_bwd`` (K1/K2) or ``bisect_fwd``/
+    ``bisect_bwd`` (their first design, the bisection tools' ``full``)."""
+    blocks = ctypes.c_int(0)
+    rc = getattr(load_library(), f"su_{entry}_occupancy")(
+        nq, n_gates, device, ctypes.addressof(blocks))
+    check(rc, f"{entry} occupancy")
+    return blocks.value
 
 
 def check(rc: int, what: str) -> None:

@@ -24,12 +24,15 @@ stream index of the class's last composited duplicate, as a float,
 depend on the gates.
 
 ``blend_stream`` is the entry: an ``autograd.Function`` whose forward
-launches kernel K1 (``csrc/blend_fwd.cuh``, instantiated in
-``blend_fwd.cu``) on a CUDA tensor and runs
+launches kernel K1 (``csrc/blend_fwd_sm90.cuh``, instantiated in
+``blend_fwd.cu`` and ``blend_fwd_gated.cu``) on a CUDA tensor and runs
 ``blend_forward_plain`` on a CPU tensor, and whose backward launches
-kernel K2 (``csrc/blend_bwd.cuh``, instantiated in ``blend_bwd.cu`` and
-``blend_bwd_gated.cu``) or runs ``blend_backward_plain`` the same way. On a CUDA tensor a kernel that fails to build or launch raises;
-nothing falls back to the plain versions.
+kernel K2 (``csrc/blend_bwd_sm90.cuh``, instantiated in ``blend_bwd.cu``
+and ``blend_bwd_gated.cu``) or runs ``blend_backward_plain`` the same
+way. The kernels start the tiles longest first, in the binning's
+``StreamBinning.tile_order``; the plain versions' results do not depend
+on the order. On a CUDA tensor a kernel that fails to build or launch
+raises; nothing falls back to the plain versions.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ REC = 16                       # record rows at the default NQ
 CH = 12                        # accumulator channels at the default NQ
 MAX_NQ = 16                    # payload channels the CUDA kernel carries
 MAX_GATES = 6                  # gated chains the CUDA kernels carry
-GATED_NQ = (6, 12)             # payload widths the gated K2 is built for
+GATED_NQ = (6, 12)             # payload widths gated K1/K2 are built for
 MAX_STREAM = 1 << 24           # lk_g is a float: exact below 2^24
 
 
@@ -126,7 +129,7 @@ def pack_geometry_T(sur, n_surfels: int, extra_payload=None,
 def blend_forward_plain(recT, tile_offsets, tiles_x: int, tiles_y: int,
                         settings: RasterizeSettings, nq: int = NQ,
                         n_gates: int = 0, tile_batch: int = 64,
-                        count_pairs: bool = False):
+                        count_pairs: bool = False, skip_rule: bool = False):
     """Plain PyTorch version of kernel K1, vectorized over batches of
     ``tile_batch`` tiles: each tile's duplicates in chunks of S_CHUNK with
     a carried transmittance and done flag per chain (``blendmath.
@@ -137,9 +140,13 @@ def blend_forward_plain(recT, tile_offsets, tiles_x: int, tiles_y: int,
     int32). With ``count_pairs`` also
     a dict of (duplicate, pixel) pair counts: ``evaluated``, the pairs the
     blend needs (per pixel, its tile's duplicates up to and including the
-    last one a live chain reached), ``kept`` (composited by the main
-    chain) and ``gated_kept`` (composited by a gated chain, summed over
-    the chains).
+    last one a live chain reached), ``evaluated_skip_rule``, those of them
+    the kernel evaluates (it skips a pair once the main chain is done and
+    so is every chain of the duplicate's classes), ``kept`` (composited by
+    the main chain) and ``gated_kept`` (composited by a gated chain,
+    summed over the chains). ``skip_rule`` applies that skip: a skipped
+    pair's α is set to 0 before the chains run, which leaves every output
+    as it is exactly when the rule is exact.
     """
     dev = recT.device
     n_tiles = tiles_x * tiles_y
@@ -152,7 +159,8 @@ def blend_forward_plain(recT, tile_offsets, tiles_x: int, tiles_y: int,
         acc[..., ch + 4 * g + 3] = -1.0
     lk = torch.full((n_tiles, PIX, 1), -1, dtype=torch.int32, device=dev)
     tally = {k: torch.zeros((), dtype=torch.int64, device=dev)
-             for k in ("evaluated", "kept", "gated_kept")}
+             for k in ("evaluated", "evaluated_skip_rule", "kept",
+                       "gated_kept")}
     off = tile_offsets.to(torch.int64)
     counts = off[1:] - off[:-1]
     counts_host = counts.cpu()
@@ -199,14 +207,31 @@ def blend_forward_plain(recT, tile_offsets, tiles_x: int, tiles_y: int,
             m = map_depth(tdep, settings.znear, settings.zfar)
             idx = lane[None, :, None].expand_as(a)
             none = torch.full_like(idx, -1)
-
-            w, t_excl, keep, live, t_carry, done = _chain_weights(
-                a, t_carry, done, t_eps)
             gates = gate_bits(chunk[Q_ROW0 + nq], G) if G else None
-            for g in range(G):                                # [G, Tb, S, 1]
-                ag = torch.where(gates[g], a, torch.zeros_like(a))
-                wg, _, keep_g, live_g, tg_carry[g], done_g[g] = \
-                    _chain_weights(ag, tg_carry[g], done_g[g], t_eps)
+            carried = (t_carry, done, list(tg_carry), list(done_g))
+
+            def chains(a):
+                """The main and gated chains over this chunk from the
+                carried state: (main, [per gate], live, needed), where
+                ``needed`` marks the pairs a live chain of the pair's own
+                classes reaches (the kernel's skip rule keeps them)."""
+                main = _chain_weights(a, carried[0], carried[1], t_eps)
+                per_g, live, needed = [], main[3], main[3]
+                for g in range(G):                            # [G, Tb, S, 1]
+                    ag = torch.where(gates[g], a, torch.zeros_like(a))
+                    per_g.append(_chain_weights(ag, carried[2][g],
+                                                carried[3][g], t_eps))
+                    live = live | per_g[g][3]
+                    needed = needed | (gates[g] & per_g[g][3])
+                return main, per_g, live, needed
+
+            main, per_g, live, needed = chains(a)
+            if skip_rule and G:
+                a = torch.where(needed, a, torch.zeros_like(a))
+                main, per_g, _, _ = chains(a)
+            w, t_excl, keep, _, t_carry, done = main
+            for g in range(G):
+                wg, _, keep_g, _, tg_carry[g], done_g[g] = per_g[g]
                 wgm = wg * m
                 sums_g[g] += torch.stack([wg.sum(1), wgm.sum(1),
                                           (wgm * m).sum(1)])
@@ -214,11 +239,12 @@ def blend_forward_plain(recT, tile_offsets, tiles_x: int, tiles_y: int,
                 lk_new = torch.gather(gidx, 1, last_g.clamp(min=0))
                 lk_g[g] = torch.where(last_g >= 0, lk_new.to(torch.float32),
                                       lk_g[g])
-                live = live | live_g
                 if count_pairs:
                     tally["gated_kept"] += keep_g.sum()
             if count_pairs:
                 tally["evaluated"] += (inr[..., None] & live).sum()
+                tally["evaluated_skip_rule"] += (inr[..., None] & live
+                                                 & needed).sum()
                 tally["kept"] += keep.sum()
 
             q = chunk[Q_ROW0:Q_ROW0 + nq, ..., 0]             # [nq, Tb, S]
@@ -258,14 +284,37 @@ def _launch_args(settings, dev):
             index, torch.cuda.current_stream(dev).cuda_stream)
 
 
+def _refuse_unbuilt(nq, n_gates):
+    if n_gates and nq not in GATED_NQ:
+        raise ValueError(f"the CUDA blend carries gated chains at nq in "
+                         f"{GATED_NQ} (colour + normal, and with the "
+                         f"semantic payload), got nq={nq}")
+
+
+def _check_order(tile_order, n_tiles, dev):
+    """The kernels take the binning's tile order
+    (``StreamBinning.tile_order``, ``tiles.tile_order`` of the offsets):
+    a permutation of the tiles. A block whose entry names no tile leaves
+    it unwritten."""
+    if (tile_order is None or tile_order.shape != (n_tiles,)
+            or tile_order.dtype != torch.int32 or tile_order.device != dev
+            or not tile_order.is_contiguous()):
+        raise ValueError(f"the CUDA blend needs the binning's tile_order: "
+                         f"a contiguous int32 [{n_tiles}] on {dev}")
+
+
 def blend_forward_cuda(recT, tile_offsets, tiles_x: int, tiles_y: int,
                        settings: RasterizeSettings, nq: int = NQ,
-                       n_gates: int = 0):
-    """Launch kernel K1 (``csrc/blend_fwd.cu``) on the current stream."""
+                       n_gates: int = 0, tile_order=None):
+    """Launch kernel K1 (``csrc/blend_fwd_sm90.cuh``) on the current
+    stream, its blocks on the tiles in ``tile_order``
+    (``StreamBinning.tile_order``)."""
     n_tiles = tiles_x * tiles_y
     dev = recT.device
+    _refuse_unbuilt(nq, n_gates)
     _check_blend_args("blend_forward_cuda", recT, tile_offsets, n_tiles, nq,
                       n_gates)
+    _check_order(tile_order, n_tiles, dev)
     lib = cuda_lib.load_library()
     acc = torch.empty((n_tiles, PIX, ch_for(nq) + 4 * n_gates),
                       dtype=torch.float32, device=dev)
@@ -273,7 +322,8 @@ def blend_forward_cuda(recT, tile_offsets, tiles_x: int, tiles_y: int,
     znear, zfar, index, stream = _launch_args(settings, dev)
     rc = lib.su_blend_fwd(
         recT.data_ptr(), recT.shape[0], recT.shape[1], nq, n_gates,
-        Q_ROW0 + nq, tile_offsets.data_ptr(), n_tiles, tiles_x, znear, zfar,
+        Q_ROW0 + nq, tile_offsets.data_ptr(), tile_order.data_ptr(),
+        n_tiles, tiles_x, znear, zfar,
         ctypes.c_float(settings.t_eps), acc.data_ptr(), lk.data_ptr(), index,
         stream)
     cuda_lib.check(rc, "blend_fwd launch")
@@ -283,17 +333,20 @@ def blend_forward_cuda(recT, tile_offsets, tiles_x: int, tiles_y: int,
 
 def blend_forward(recT, tile_offsets, tiles_x: int, tiles_y: int,
                   settings: RasterizeSettings, nq: int = NQ,
-                  n_gates: int = 0):
+                  n_gates: int = 0, tile_order=None):
     """K1 on a CUDA tensor, its plain version on a CPU tensor."""
-    fn = blend_forward_plain if recT.device.type == "cpu" \
-        else blend_forward_cuda
-    return fn(recT, tile_offsets, tiles_x, tiles_y, settings, nq, n_gates)
+    if recT.device.type == "cpu":
+        return blend_forward_plain(recT, tile_offsets, tiles_x, tiles_y,
+                                   settings, nq, n_gates)
+    return blend_forward_cuda(recT, tile_offsets, tiles_x, tiles_y,
+                              settings, nq, n_gates, tile_order)
 
 
 def blend_backward_plain(recT, tile_offsets, tiles_x: int, tiles_y: int,
                          settings: RasterizeSettings, acc, lk, dacc,
                          nq: int = NQ, n_gates: int = 0,
-                         tile_batch: int = 64, count_pairs: bool = False):
+                         tile_batch: int = 64, count_pairs: bool = False,
+                         skip_rule: bool = False):
     """Plain PyTorch version of kernel K2, the blend backward, vectorized
     over batches of ``tile_batch`` tiles.
 
@@ -316,9 +369,13 @@ def blend_backward_plain(recT, tile_offsets, tiles_x: int, tiles_y: int,
     gradients in stream order (zero outside every tile's range and in the
     rows past Q_ROW0 + nq, the gate row included); with ``count_pairs``
     also a dict of pair counts: ``evaluated`` (per pixel, its tile's
-    duplicates up to its deepest lk or lk_g), ``kept`` (main chain),
-    ``gated_kept`` (summed over the gated chains) and ``any_kept`` (pairs
-    that reach the pair VJP: kept by some chain).
+    duplicates up to its deepest lk or lk_g), ``evaluated_skip_rule``
+    (those the kernel evaluates: index ≤ lk, or bit g set and index ≤
+    lk_g for some g), ``kept`` (main chain), ``gated_kept`` (summed over
+    the gated chains) and ``any_kept`` (pairs that reach the pair VJP:
+    kept by some chain). ``skip_rule`` sets the α of every other pair to
+    0 before the chains run, which leaves the gradient as it is exactly
+    when the rule is exact.
     """
     dev = recT.device
     n_tiles = tiles_x * tiles_y
@@ -328,7 +385,8 @@ def blend_backward_plain(recT, tile_offsets, tiles_x: int, tiles_y: int,
     dmdt_num = zfar * znear / (zfar - znear)
     drecT = torch.zeros(recT.shape, dtype=torch.float32, device=dev)
     tally = {k: torch.zeros((), dtype=torch.int64, device=dev)
-             for k in ("evaluated", "kept", "gated_kept", "any_kept")}
+             for k in ("evaluated", "evaluated_skip_rule", "kept",
+                       "gated_kept", "any_kept")}
     off = tile_offsets.to(torch.int64)
     counts = off[1:] - off[:-1]
     lk64 = lk[..., 0].to(torch.int64)                        # [T, PIX]
@@ -381,6 +439,19 @@ def blend_backward_plain(recT, tile_offsets, tiles_x: int, tiles_y: int,
                           c2dy * z, geo[2], geo[5], z)
                 a, tdep = pair_alpha_depth(m_rows, (c2dx, c2dy), z, opac,
                                            opac > 0.0, px, py, znear)
+            gates = gate_bits(recT[Q_ROW0 + nq, gidx], G)[..., None] if G \
+                else None
+            # the pairs the kernel evaluates: a chain of the pair's own
+            # classes still scans it
+            needed = gidx[..., None] <= lk_b
+            for g in range(G):
+                needed = needed | (gates[g] & (gidx[..., None]
+                                               <= lkg64[g, t0:t1, None, :]))
+            if skip_rule:
+                with torch.enable_grad():
+                    a = torch.where(needed, a, torch.zeros_like(a))
+            if count_pairs:
+                tally["evaluated_skip_rule"] += (inr[..., None] & needed).sum()
             ad, td = a.detach(), tdep.detach()               # [Tb, S, P]
             keep = (ad > 0.0) & (gidx[..., None] <= lk_b)
             m = map_depth(td, znear, zfar)
@@ -392,8 +463,6 @@ def blend_backward_plain(recT, tile_offsets, tiles_x: int, tiles_y: int,
             dt = w * (g_depth + (g_m1 + 2.0 * m * g_m2) * dmdt)
 
             any_kept = keep
-            gates = gate_bits(recT[Q_ROW0 + nq, gidx], G)[..., None] if G \
-                else None
             for g in range(G):
                 c0g = ch + 4 * g
                 ga, gm1g, gm2g = (d[:, None, :, c0g + k] for k in range(3))
@@ -469,13 +538,12 @@ def _check_blend_args(name, recT, tile_offsets, n_tiles, nq, n_gates,
 
 def blend_backward_cuda(recT, tile_offsets, tiles_x: int, tiles_y: int,
                         settings: RasterizeSettings, acc, lk, dacc,
-                        nq: int = NQ, n_gates: int = 0):
-    """Launch kernel K2 (``csrc/blend_bwd.cuh``) on the current stream."""
+                        nq: int = NQ, n_gates: int = 0, tile_order=None):
+    """Launch kernel K2 (``csrc/blend_bwd_sm90.cuh``) on the current
+    stream, its blocks on the tiles in ``tile_order``
+    (``StreamBinning.tile_order``)."""
     n_tiles = tiles_x * tiles_y
-    if n_gates and nq not in GATED_NQ:
-        raise ValueError(f"the CUDA blend backward carries gated chains at "
-                         f"nq in {GATED_NQ} (colour + normal, and with the "
-                         f"semantic payload), got nq={nq}")
+    _refuse_unbuilt(nq, n_gates)
     _check_blend_args("blend_backward_cuda", recT, tile_offsets, n_tiles, nq,
                       n_gates, (acc, lk, dacc))
     ch = ch_for(nq) + 4 * n_gates
@@ -486,13 +554,15 @@ def blend_backward_cuda(recT, tile_offsets, tiles_x: int, tiles_y: int,
     if (acc.dtype != torch.float32 or dacc.dtype != torch.float32
             or lk.dtype != torch.int32):
         raise TypeError("acc and dacc must be float32 and lk int32")
-    lib = cuda_lib.load_library()
     dev = recT.device
+    _check_order(tile_order, n_tiles, dev)
+    lib = cuda_lib.load_library()
     dgrad = torch.zeros(recT.shape, dtype=torch.float32, device=dev)
     znear, zfar, index, stream = _launch_args(settings, dev)
     rc = lib.su_blend_bwd(
         recT.data_ptr(), recT.shape[0], recT.shape[1], nq, n_gates,
-        Q_ROW0 + nq, tile_offsets.data_ptr(), n_tiles, tiles_x, znear, zfar,
+        Q_ROW0 + nq, tile_offsets.data_ptr(), tile_order.data_ptr(),
+        n_tiles, tiles_x, znear, zfar,
         acc.data_ptr(), lk.data_ptr(), dacc.data_ptr(), dgrad.data_ptr(),
         index, stream)
     cuda_lib.check(rc, "blend_bwd launch")
@@ -502,38 +572,40 @@ def blend_backward_cuda(recT, tile_offsets, tiles_x: int, tiles_y: int,
 
 def blend_backward(recT, tile_offsets, tiles_x: int, tiles_y: int,
                    settings: RasterizeSettings, acc, lk, dacc, nq: int = NQ,
-                   n_gates: int = 0):
+                   n_gates: int = 0, tile_order=None):
     """K2 on a CUDA tensor, its plain version on a CPU tensor."""
-    fn = blend_backward_plain if recT.device.type == "cpu" \
-        else blend_backward_cuda
-    return fn(recT, tile_offsets, tiles_x, tiles_y, settings, acc, lk, dacc,
-              nq, n_gates)
+    if recT.device.type == "cpu":
+        return blend_backward_plain(recT, tile_offsets, tiles_x, tiles_y,
+                                    settings, acc, lk, dacc, nq, n_gates)
+    return blend_backward_cuda(recT, tile_offsets, tiles_x, tiles_y,
+                               settings, acc, lk, dacc, nq, n_gates,
+                               tile_order)
 
 
 class _BlendStream(torch.autograd.Function):
     @staticmethod
     def forward(ctx, recT, tile_offsets, tiles_x, tiles_y, settings, nq,
-                n_gates):
+                n_gates, tile_order):
         acc, lk = blend_forward(recT, tile_offsets, tiles_x, tiles_y,
-                                settings, nq, n_gates)
+                                settings, nq, n_gates, tile_order)
         ctx.mark_non_differentiable(lk)
         ctx.save_for_backward(recT, tile_offsets, acc, lk)
-        ctx.blend = (tiles_x, tiles_y, settings, nq, n_gates)
+        ctx.blend = (tiles_x, tiles_y, settings, nq, n_gates, tile_order)
         return acc, lk
 
     @staticmethod
     def backward(ctx, dacc, dlk):
         recT, tile_offsets, acc, lk = ctx.saved_tensors
-        tiles_x, tiles_y, settings, nq, n_gates = ctx.blend
+        tiles_x, tiles_y, settings, nq, n_gates, tile_order = ctx.blend
         drecT = blend_backward(recT, tile_offsets, tiles_x, tiles_y,
                                settings, acc, lk, dacc.contiguous(), nq,
-                               n_gates)
-        return (drecT,) + (None,) * 6
+                               n_gates, tile_order=tile_order)
+        return (drecT,) + (None,) * 7
 
 
 def blend_stream(recT, tile_offsets, tiles_x: int, tiles_y: int,
                  settings: RasterizeSettings, nq: int = NQ,
-                 n_gates: int = 0):
+                 n_gates: int = 0, tile_order=None):
     """Blend over the compact sorted duplicate stream.
 
     recT [rec, cap] f32 lane-major records in stream order
@@ -544,7 +616,9 @@ def blend_stream(recT, tile_offsets, tiles_x: int, tiles_y: int,
     lk [T, PIX, 1] int32). Every tile is written, empty ones as zeros
     with lk and every lk_g −1. Differentiable in ``recT``: the backward
     returns the per-duplicate record gradients [rec, cap] (kernel K2),
-    zero on the gate row.
+    zero on the gate row. ``tile_order`` [T] int32: the order in which
+    the kernels start the tiles, ``StreamBinning.tile_order`` (needed on
+    the card; the plain versions on the CPU take none).
     """
     return _BlendStream.apply(recT, tile_offsets, tiles_x, tiles_y,
-                              settings, nq, n_gates)
+                              settings, nq, n_gates, tile_order)

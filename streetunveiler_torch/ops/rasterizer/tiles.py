@@ -12,6 +12,8 @@ stream with per-tile CSR offsets (counterpart of
    ``expand_duplicates_plain`` on the CPU — then a stable sort by tile
    (depth order within each tile is preserved) and ``searchsorted`` for
    the CSR offsets. On overflow the farthest surfels' duplicates drop.
+4. ``tile_order``: the tiles by descending duplicate count, the order in
+   which the blend kernels K1 and K2 start them (longest first).
 
 The TPU visit schedule (tile_of_visit … lane_hi) was a workaround for the
 TPU's gather cost; the GPU blend walks each tile's CSR range instead.
@@ -40,6 +42,7 @@ class StreamBinning:
     overflow: torch.Tensor       # [] bool — capacity exceeded
     demand: torch.Tensor         # [] i32 — uncapped duplicate total
     #                              (overflow ⟺ demand > capacity)
+    tile_order: torch.Tensor     # [T] i32 ``tile_order(tile_offsets)``
     tiles_x: int = 0
     tiles_y: int = 0
 
@@ -259,6 +262,17 @@ def ranked_table(center2d, ext, depth, valid, width: int, height: int,
     return tbl, dup_start
 
 
+def tile_order(tile_offsets):
+    """The tiles of the CSR ``tile_offsets`` [T+1] by descending duplicate
+    count, ties in tile order (a stable sort): [T] int32, a permutation.
+    Block b of K1 and K2 runs tile ``tile_order[b]``, so the longest tiles
+    start first and none walks alone at the end; a tile's outputs do not
+    depend on when it runs."""
+    lengths = tile_offsets[1:] - tile_offsets[:-1]
+    return torch.sort(lengths, descending=True, stable=True).indices.to(
+        torch.int32)
+
+
 def bin_surfels_stream(center2d, ext, depth, valid, width: int, height: int,
                        tile_w: int, tile_h: int, dup_capacity: int,
                        max_tiles_per_surfel: int = 256,
@@ -293,4 +307,5 @@ def bin_surfels_stream(center2d, ext, depth, valid, width: int, height: int,
         side="left").to(torch.int32)
     return StreamBinning(sorted_surfel=s_surf, tile_offsets=off,
                          overflow=total > cap, demand=total,
-                         tiles_x=tiles_x, tiles_y=tiles_y)
+                         tiles_x=tiles_x, tiles_y=tiles_y,
+                         tile_order=tile_order(off))

@@ -3,7 +3,8 @@
 Counterpart of ``tools/bisect_bwd.py`` (its Pallas kernel, ``make_kernel``
 :36, is launched at :199): variants of kernel K2 (``csrc/blend_bwd.cuh``,
 instantiated by ``csrc/bisect_bwd.cu`` at (nq, G) = (6, 0) and
-``csrc/bisect_bwd_g5.cu`` at (12, 5)) that differ only in the body, timed
+``csrc/bisect_bwd_g5.cu`` at (12, 5); ``full`` also at (12, 0)) that
+differ only in the body, timed
 on the same records, forward residuals and cotangents, so that the
 differences from ``full`` show where the kernel's time goes.
 
@@ -47,13 +48,15 @@ import time
 import numpy as np
 import torch
 
-from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel
+from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
 from streetunveiler_torch.ops.rasterizer.blendmath import (map_depth,
                                                            pair_alpha_depth)
 
 VARIANTS = ("full", "floor", "no_vjp", "no_dq", "no_gqqc", "no_suffmm",
             "no_exp")                       # index = the kernel's variant
 BUILT = ((6, 0), (12, 5))                   # (nq, G) the variants are built at
+FULL_BUILT = BUILT + ((12, 0),)             # and `full` alone (the semantic
+#                                             step's first design of K2)
 CHUNK = 128                                 # the TPU tool's visit
 BATCH = 32                                  # K2's duplicates per staged batch
 DECAY = 0.999
@@ -310,9 +313,10 @@ def bisect_backward_cuda(variant, recT, tile_offsets, tiles_x: int,
     timed launch."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
-    if (nq, n_gates) not in BUILT:
+    if (nq, n_gates) not in (FULL_BUILT if variant == "full" else BUILT):
         raise ValueError(f"the variants are built at (nq, G) in {BUILT}, "
-                         f"got ({nq}, {n_gates})")
+                         f"full also at {FULL_BUILT[len(BUILT):]}, got "
+                         f"({nq}, {n_gates})")
     n_tiles = tiles_x * tiles_y
     kernel._check_blend_args("bisect_backward_cuda", recT, tile_offsets,
                              n_tiles, nq, n_gates, (acc, lk, dacc))
@@ -396,7 +400,8 @@ def main(argv=None):
         cam = street.street_camera(args.device)
     recT, off, tx, ty, settings, nq, n_gates = street.street_stream(
         state, cam, late=args.gates == 5, device=args.device)
-    acc, lk = kernel.blend_forward(recT, off, tx, ty, settings, nq, n_gates)
+    acc, lk = kernel.blend_forward(recT, off, tx, ty, settings, nq, n_gates,
+                                   tile_order=tiles.tile_order(off))
     a = (recT, off, tx, ty, settings, acc, lk,
          cotangents(acc, nq, n_gates), nq, n_gates)
     full = bisect_backward("full", *a)

@@ -93,7 +93,8 @@ def make(mode, ctx):
             recT = ctx.recT0 if mode in ("k_bin", "k_bin_launder") \
                 else _gather_records(ctx.packT0, b.sorted_surfel)
             return kernel.blend_stream(recT, va[0], ctx.tiles_x,
-                                       ctx.tiles_y, ctx.settings)
+                                       ctx.tiles_y, ctx.settings,
+                                       tile_order=b.tile_order)
     return body
 
 

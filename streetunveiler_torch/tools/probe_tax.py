@@ -117,8 +117,9 @@ def make(variant, ncalls, ctx):
                 if variant == "launder":
                     off = identity_copy(off)
             for _ in range(ncalls):
-                out = kernel.blend_stream(ctx.recT0, off, ctx.tiles_x,
-                                          ctx.tiles_y, ctx.settings)
+                out = kernel.blend_stream(
+                    ctx.recT0, off, ctx.tiles_x, ctx.tiles_y, ctx.settings,
+                    tile_order=ctx.binning.tile_order)
             return out
     return body
 

@@ -7,7 +7,8 @@ records as the main path does: the photometric step's stream (nq 6, no
 gated chains) or the late step's (nq 12 with the one-hot semantics, and
 G = 5 gated chains for every class but sky). ``probe_inputs`` is the
 probes' setup: the scene with its colours as the payload, binned and
-gathered once.
+gathered once. ``dense_streams`` is the dense-occlusion stack the blend
+kernels' gated chains are checked on.
 """
 
 from __future__ import annotations
@@ -169,3 +170,52 @@ def bin_stream(ctx):
                                         ctx.height, kernel.TILE_W,
                                         kernel.TILE_H, ctx.cap, 64,
                                         cull=cull)
+
+
+def dense_streams(device="cuda"):
+    """A dense-occlusion stack: 1,500 mostly opaque surfels at 128×96
+    whose nearest third is class 0 and the rest classes 1-4 at random, so
+    that the other classes' gated chains outlive the main chain; binned as
+    ``rasterize`` does. Returns {G: blend arguments (recT, tile_offsets,
+    tiles_x, tiles_y, settings, nq, n_gates)} for the photometric records
+    (G 0, nq 6) and the late ones (G 5, nq 12 with the one-hot classes)."""
+    import torch.nn.functional as F
+    from streetunveiler_torch.ops.rasterizer import (RasterizeSettings,
+                                                     kernel, tiles)
+    from streetunveiler_torch.ops.rasterizer.api import (
+        _gather_records, default_duplicate_capacity, encode_extra)
+    from streetunveiler_torch.ops.rasterizer.preprocess import \
+        preprocess_surfels
+    rng = np.random.default_rng(0)
+    n, w, h, f = 1500, 128, 96, 110.0
+    z = rng.uniform(2.0, 30.0, n)
+    means = np.stack([rng.uniform(-2.5, 2.5, n), rng.uniform(-2, 2, n), z],
+                     1)
+    cls = np.where(z < np.quantile(z, 1 / 3), 0, rng.integers(1, 5, n))
+    dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    args = [dev(means), dev(rng.uniform(0.2, 0.9, (n, 2))),
+            dev(rng.normal(size=(n, 4))), dev(rng.uniform(0.5, 0.98, n)),
+            dev(rng.uniform(0, 1, (n, 3)))]
+    st = RasterizeSettings(width=w, height=h)
+    K = dev([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]])
+    with torch.no_grad():
+        sur = preprocess_surfels(*args, dev(np.eye(4)), K, st)
+        b = tiles.bin_surfels_stream(sur.center2d, sur.ext, sur.depth,
+                                     sur.valid, w, h, kernel.TILE_W,
+                                     kernel.TILE_H,
+                                     default_duplicate_capacity(n, w, h),
+                                     cull=sur.cull)
+        if bool(b.overflow):
+            raise AssertionError("the dense stack overflowed its capacity")
+        cls_t = torch.as_tensor(cls, device=device)
+        out = {}
+        for late in (False, True):
+            extra = F.one_hot(cls_t, 6).float() if late else None
+            gates = torch.stack([cls_t == g for g in range(5)], 1) if late \
+                else None
+            pack, n_gates = encode_extra(extra, gates)
+            recT = _gather_records(kernel.pack_geometry_T(sur, n, pack),
+                                   b.sorted_surfel)
+            out[n_gates] = (recT, b.tile_offsets, b.tiles_x, b.tiles_y, st,
+                            12 if late else 6, n_gates)
+    return out

@@ -441,6 +441,30 @@ def test_cli_train_on_cpu(tmp_path):
                         "colmap"])
 
 
+def test_cli_detect_anomaly_raises_on_a_nan_loss(tmp_path, monkeypatch):
+    """``--detect_anomaly`` (the JAX CLI's flag, ``jax_debug_nans`` there;
+    ``torch.autograd.set_detect_anomaly`` here, as the reference's
+    train.py:310,325): with the L1 term forced to NaN the training raises
+    in the backward; without the flag it trains through on NaN."""
+    from streetunveiler_torch.cli import train as cli_train
+    from streetunveiler_torch.train import step as tstep
+    l1 = tstep.l1_loss
+    monkeypatch.setattr(tstep, "l1_loss",
+                        lambda a, b: torch.sqrt(l1(a, b) - 2.0))
+    common = ["--iterations", "2", "--log_every", "2", "--device", "cpu",
+              "--synthetic_points", "200", "--synthetic_cameras", "2",
+              "--synthetic_width", "32", "--synthetic_height", "24",
+              "--synthetic_focal", "20"]
+    with pytest.raises(RuntimeError, match="nan"):
+        cli_train.main(["--model_path", str(tmp_path / "a"),
+                        "--detect_anomaly"] + common)
+    assert not torch.is_anomaly_enabled()
+    _, reports = cli_train.main(["--model_path", str(tmp_path / "b")]
+                                + common)
+    assert [r.iteration for r in reports] == [2]
+    assert np.isnan(reports[-1].loss)
+
+
 # ------------------------------------------------------------ late phase
 
 LATE_IT = 31_001   # past semantic_dist_from_iter, normal consistency and
