@@ -46,7 +46,13 @@ drives the two paths of the port on the 300k-surfel street scene at
   registers, resident blocks and evaluated pairs (``k1_redesign``,
   ``k2_redesign``); the street's tile lengths (``tile_lengths``); and the
   kernels' guard against a tile order entry that names no tile
-  (``tile_order_guard``).
+  (``tile_order_guard``);
+* the probes' redesign (phase group 12): T3 (``csrc/micro_reduce_sm90.cuh``)
+  in its nine (mode, k) and T9 (``csrc/mmt3_sm90.cuh``) bit for bit
+  against their first design (``csrc/micro_reduce.cu``, ``csrc/mmt3.cu``),
+  within their tolerances of the plain versions, both timed in turns
+  beside the library yardsticks and the launch floor
+  (``micro_reduce_redesign``, ``mmt3_redesign``).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last two lines are the kernels table and
@@ -923,7 +929,8 @@ def ptxas_summary(log):
     gated at (6, 3) and (12, 5), as K<nq,G>; K3), and every instantiation
     of the measurement tools (T1<G,variant>, T2<nq,G,variant>, T3 and T4
     kernels, T5/T6<width,flags> of csrc/micro_floor.cu, the T7/T8 copy,
-    T9), named by the translation unit that built them."""
+    T9; T3's and T9's redesigns as ``*_sm90``), named by the translation
+    unit that built them."""
     import re
     from streetunveiler_torch.tools import bisect_bwd, bisect_fwd
     keep = {"K1<6,0>", "K1<9,0>", "K1<12,0>", "K1<6,3>", "K1<12,5>",
@@ -942,8 +949,9 @@ def ptxas_summary(log):
             bwd = re.search(r"blend_bwd_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
                             line)
             # the kernel's name follows its length in the mangled name
-            probe = re.search(r"\d(reduce_[a-z]+|prefix_[a-z]+)(?:ILi(\d+)E)?",
-                              line)
+            probe = re.search(
+                r"\d(reduce_[a-z]+(?:_sm90)?|prefix_[a-z]+|fold_partials)"
+                r"(?:ILi(\d+)E)?", line)
             walk = re.search(r"floor_walkILi(\d+)ELi(\d+)E", line)
             if fwd90 or bwd90:
                 q, g = ints(fwd90 or bwd90)
@@ -959,6 +967,8 @@ def ptxas_summary(log):
                 name = f"T{6 if flags & 16 else 5}<{w},{flags}>"
             elif "copy_int4" in line or "mmt3_kernel" in line:
                 name = "T7/T8 copy" if "copy_int4" in line else "T9"
+            elif "mmt3_sm90_kernel" in line:
+                name = "T9 sm90"
             elif probe:
                 tag = "T3" if unit.startswith("micro_reduce") else "T4"
                 name = f"{tag} {probe.group(1)}" + (
@@ -1123,6 +1133,13 @@ VARIANT_TOL, NOPAIR_TOL = 1e-4, 1e-3
 # modes' operands are rounded alike on both sides, but the tensor core
 # accumulates in its own order and rounding
 MICRO_TOL_F32, MICRO_TOL_MMA = 1e-4, 1e-3
+# T3's library yardsticks (streetunveiler_torch/tools/micro_reduce.py),
+# PyTorch's reductions of the thread mode's k 13 sums, the weights on the
+# card beforehand: three calls, and one; the faster is library_ms
+T3_LIBRARY = {
+    "x.view(512, NV, 128).sum(-1).sum(-1)[:, None] * w":
+        "micro_reduce_library",
+    "x.sum(dim=1)[:, None] * w": "micro_reduce_library_one"}
 T4_OPS_PER_PAIR = 50   # csrc/micro_prefix.cu's serial mode, counted:
 #   the fake pair ~27, the epilogue ~17, the four running sums 6
 TOOL_REPS = 10
@@ -1341,20 +1358,25 @@ def tool_phases(torch, photo_args, late_args, k2_photo):
         t3_ok = t3_ok and m_ok
     t3_plain_ms = timing.median_ms(
         lambda: micro_reduce.micro_reduce_plain("thread", 13, x), 1)
-    t3_lib_ms = timing.median_ms(
-        lambda: micro_reduce.micro_reduce_library(13, x), TOOL_REPS)
+    w13 = micro_reduce.weights(13, "cuda")
+    t3_lib = {call: timing.median_ms(
+        lambda: getattr(micro_reduce, fn)(w13, x), TOOL_REPS)
+        for call, fn in T3_LIBRARY.items()}
+    t3_lib_call = min(t3_lib, key=t3_lib.get)
     t3_err = float((micro_reduce.micro_reduce_cuda("thread", 13, x)
                     - micro_reduce.micro_reduce_plain("thread", 13, x)
                     ).abs().max())
     # the most operations: the pair chain's 50 per element
     t3_bound, t3_by = bound(nbytes, 50 * x.numel())
     emit("micro_reduce", nv=micro_reduce.NV, bytes=nbytes, modes=modes,
-         plain_ms_thread_k13=t3_plain_ms, library_ms=t3_lib_ms,
-         library_call="x.view(512, NV, 128).sum(-1).sum(-1)[:, None] * w",
-         bound_ms=t3_bound, bound_by=t3_by, within_tolerance=t3_ok)
+         design="redesign", plain_ms_thread_k13=t3_plain_ms,
+         library_ms=t3_lib[t3_lib_call], library_call=t3_lib_call,
+         library_ms_each=t3_lib, bound_ms=t3_bound, bound_by=t3_by,
+         within_tolerance=t3_ok)
     rows["T3"] = dict(ms=modes["thread_k13"]["ms"], plain_ms=t3_plain_ms,
                       bound_ms=t3_bound, bound_by=t3_by, max_abs_err=t3_err,
-                      library_ms=t3_lib_ms)
+                      library_ms=t3_lib[t3_lib_call],
+                      library_call=t3_lib_call)
     del x
     all_ok = all_ok and t3_ok
 
@@ -1467,6 +1489,13 @@ def graph_ms(torch, fn, replayed, calls=20, replays=5):
         times.append(start.elapsed_time(stop) / calls)
     del graph
     return statistics.median(times)
+
+
+def launch_floor_ms(torch):
+    """The device time of one tiny PyTorch kernel (a one-element fill_)
+    through ``graph_ms``: what a launch-bound call cannot go below."""
+    one = torch.zeros(1, device="cuda")
+    return graph_ms(torch, lambda: one.fill_(1.0), collections.Counter())
 
 
 def floor_err(torch, got, want):
@@ -1658,7 +1687,9 @@ def probe_phases(torch):
               library=lambda: probe_mmt3.mmt3_library(w, b))
     t9_event = {k: timing.median_ms(fn, TOOL_REPS) for k, fn in t9.items()}
     t9_dev = {k: graph_ms(torch, fn, replayed) for k, fn in t9.items()}
+    floor_ms = launch_floor_ms(torch)
     emit("probe_mmt3", event_ms=t9_event, device_ms=t9_dev,
+         launch_floor_ms=floor_ms,
          library_call="torch.matmul(w, b[:7].T), TF32 off",
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
@@ -1722,13 +1753,16 @@ def probe_phases(torch):
     # T7-T9 are launch-bound: their rows give device times
     rows["T7"] = dict(ms=dev["kernel_stack"], plain_ms=dev["plain_stack"],
                       bound_ms=t7_bound, bound_by=t7_by, max_abs_err=0.0,
-                      library_ms=dev["clone_stack"], key="identity_stack")
+                      library_ms=dev["clone_stack"], key="identity_stack",
+                      launch_floor_ms=floor_ms)
     rows["T8"] = dict(ms=dev["kernel"], plain_ms=dev["plain"],
                       bound_ms=t8_bound, bound_by=t8_by, max_abs_err=0.0,
-                      library_ms=dev["clone"], key="identity")
+                      library_ms=dev["clone"], key="identity",
+                      launch_floor_ms=floor_ms)
     rows["T9"] = dict(ms=t9_dev["kernel"], plain_ms=t9_dev["plain"],
                       bound_ms=t9_bound, bound_by=t9_by, max_abs_err=t9_abs,
-                      library_ms=t9_dev["library"], key="mmt3")
+                      library_ms=t9_dev["library"], key="mmt3",
+                      launch_floor_ms=floor_ms)
     for r in rows.values():
         r["launches"] = path[r["key"]]
         r["tool_launches"] = launches[r["key"]]
@@ -1899,6 +1933,151 @@ def redesign_phases(torch, photo_args, sem_args, late_args, ptxas):
     emit("k1_redesign", forms=lines["k1"], note=note)
     emit("k2_redesign", forms=lines["k2"], note=note)
     return dict(first=first, ok=ok)
+
+
+# ---------------------------------------------------------------------------
+# Phase group 12: the redesigned T3 and T9 (csrc/micro_reduce_sm90.cuh,
+# csrc/mmt3_sm90.cuh) against their first design (csrc/micro_reduce.cu,
+# csrc/mmt3.cu), at the TPU tools' sizes.
+
+PROBE_REDESIGN_REPS = 10
+F32_INSTR_PER_S = F32_OPS_PER_S / 2   # unfused: an FMA counts as two
+# unfused f32 instructions an element of the T3 modes that carry many: the
+# pair chain's 25 multiplies and 25 adds, the thread mode's multiply and
+# add for each weight
+T3_INSTRUCTIONS = {"pair": lambda k: 50, "thread": lambda k: 2 * k}
+T3_KERNEL = {"pair": "reduce_warp", "thread": "reduce_thread",
+             "warp": "reduce_warp", "mma": "reduce_mma"}
+
+
+def probe_redesign_phases(torch, ptxas):
+    """T3: each of the nine (mode, k) of both designs on the same x (1.07
+    GB): bit for bit, the redesign within its tolerance of the plain
+    version, both timed back to back (the mean over PROBE_REDESIGN_REPS
+    launches between two CUDA events, the host's launch path hidden) in the
+    turns first, new, new, first, beside both library yardsticks timed the
+    same way; bounds, ptxas. T9: the four outputs of both designs bit for
+    bit, within tolerance of the plain version and the truth; device times
+    from CUDA-graph replays (graph_ms) in the same turns, beside matmul's
+    and the launch floor. Returns the kernels-line numbers and the checks'
+    verdict."""
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch.tools import micro_reduce, probe_mmt3
+    cuda_lib.reset_launch_counts()
+    t_start = time.perf_counter()
+
+    def turns(time_fn, first, new):
+        t = {"first": [], "new": []}
+        for which in ("first", "new", "new", "first"):
+            t[which].append(time_fn(first if which == "first" else new))
+        return statistics.mean(t["first"]), statistics.mean(t["new"]), t
+
+    b2b = lambda fn: cuda_ms(torch, fn, PROBE_REDESIGN_REPS)
+    ok = True
+
+    # ---- T3
+    x = micro_reduce.make_input()
+    n = x.numel()
+    bytes_ms = 4 * n / HBM_BYTES_PER_S * 1e3
+    w13 = micro_reduce.weights(13, "cuda")
+    lib = {call: [b2b(lambda: getattr(micro_reduce, fn)(w13, x))
+                  for _ in range(2)] for call, fn in T3_LIBRARY.items()}
+    lib_ms = {call: statistics.mean(v) for call, v in lib.items()}
+    lib_call = min(lib_ms, key=lib_ms.get)
+    modes = {}
+    for mode, k in micro_reduce.MODES:
+        first = micro_reduce.micro_reduce_cuda(mode, k, x, "first")
+        new = micro_reduce.micro_reduce_cuda(mode, k, x)
+        want = micro_reduce.micro_reduce_plain(mode, k, x)
+        torch.cuda.synchronize()
+        cols = 1 if mode == "pair" else k
+        err = rel_err(new[:, :cols], want[:, :cols], 0, 0.0)
+        tol = MICRO_TOL_MMA if mode == "mma" else MICRO_TOL_F32
+        equal = torch.equal(new, first)
+        del first, new, want
+        ms_first, ms_new, t = turns(
+            b2b, lambda: micro_reduce.micro_reduce_cuda(mode, k, x, "first"),
+            lambda: micro_reduce.micro_reduce_cuda(mode, k, x))
+        # the operations this function needs: a multiply and an add for
+        # each weight and element (on the tensor cores in bf16 for mma), or
+        # the pair chain's 50
+        ops = (50 if mode == "pair" else 2 * k) * n
+        ops_ms = ops / (BF16_OPS_PER_S if mode == "mma"
+                        else F32_OPS_PER_S) * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        line = dict(
+            bit_equal=equal, max_rel_err_vs_plain=err, tolerance=tol,
+            within_tolerance=err <= tol, ms_first_design=ms_first, ms=ms_new,
+            ratio=ms_new / ms_first, ms_runs=t, bound_ms=bound_ms,
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            share_of_bound=bound_ms / ms_new,
+            ptxas=ptxas.get(f"T3 {T3_KERNEL[mode]}_sm90<{k}>"),
+            ptxas_first_design=ptxas.get(f"T3 {T3_KERNEL[mode]}<{k}>"))
+        if mode in T3_INSTRUCTIONS:
+            per = T3_INSTRUCTIONS[mode](k)
+            line.update(f32_instructions_per_element=per,
+                        instruction_floor_ms=per * n / F32_INSTR_PER_S * 1e3)
+        modes[f"{mode}_k{k}"] = line
+        ok = ok and equal and err <= tol
+    emit("micro_reduce_redesign", nv=micro_reduce.NV, bytes=4 * n,
+         modes=modes, library_ms=lib_ms[lib_call], library_call=lib_call,
+         library_ms_each=lib_ms, library_ms_runs=lib,
+         bytes_bound_ms=bytes_ms, ptxas_fold=ptxas.get("T3 fold_partials"),
+         note="first design = csrc/micro_reduce.cu, redesign = "
+              "csrc/micro_reduce_sm90.cuh; ms = mean of two runs of "
+              f"{PROBE_REDESIGN_REPS} launches back to back between two "
+              "CUDA events (the host's launch path hidden), in the turns "
+              "first, new, new, first; the library calls timed the same "
+              "way with the weights on the card; instruction_floor_ms: "
+              "unfused f32 instructions at 33.5 T/s")
+
+    # ---- T9
+    w, b = probe_mmt3.make_inputs("cuda")
+    first = probe_mmt3.mmt3_cuda(w, b, "first")
+    new = probe_mmt3.mmt3_cuda(w, b)
+    want = probe_mmt3.mmt3_plain(w, b)
+    torch.cuda.synchronize()
+    names = probe_mmt3.WAYS + ("truth",)
+    equal = {nm: torch.equal(f, g) for nm, f, g in zip(names, first, new)}
+    plain_err = {nm: float((g - p).abs().max() / p.abs().max())
+                 for nm, g, p in zip(names, new, want)}
+    truth_err = probe_mmt3.truth_errors(new)
+    ways_equal = torch.equal(new[0], new[1]) and torch.equal(new[0], new[2])
+    t9_ok = (all(equal.values()) and ways_equal
+             and max(plain_err.values()) <= MMT3_PLAIN_TOL
+             and max(truth_err.values()) <= MMT3_TRUTH_TOL)
+    ok = ok and t9_ok
+    replayed = collections.Counter()
+    graph = lambda fn: graph_ms(torch, fn, replayed)
+    t9_first, t9_new, t9_runs = turns(
+        graph, lambda: probe_mmt3.mmt3_cuda(w, b, "first"),
+        lambda: probe_mmt3.mmt3_cuda(w, b))
+    t9_lib = statistics.mean(
+        graph(lambda: probe_mmt3.mmt3_library(w, b)) for _ in range(2))
+    floor_ms = statistics.mean(launch_floor_ms(torch) for _ in range(2))
+    emit("mmt3_redesign", bit_equal=equal, ways_bit_equal=ways_equal,
+         max_rel_err_vs_plain=plain_err, max_rel_err_vs_truth=truth_err,
+         tolerance_plain=MMT3_PLAIN_TOL, tolerance_truth=MMT3_TRUTH_TOL,
+         within_tolerance=t9_ok, device_ms_first_design=t9_first,
+         device_ms=t9_new, ratio=t9_new / t9_first, device_ms_runs=t9_runs,
+         library_ms=t9_lib, library_call="torch.matmul(w, b[:7].T), TF32 off",
+         launch_floor_ms=floor_ms, x_launch_floor=t9_new / floor_ms,
+         ptxas=ptxas.get("T9 sm90"), ptxas_first_design=ptxas.get("T9"),
+         note="first design = csrc/mmt3.cu, redesign = csrc/mmt3_sm90.cuh; "
+              "device_ms: 20 calls captured in a CUDA graph, the median "
+              "replay over the calls (graph_ms), mean of two turns each, "
+              "in the turns first, new, new, first")
+    torch.cuda.synchronize()
+    launches = {key: cuda_lib.launch_counts[key] + replayed[key]
+                for key in ("micro_reduce", "mmt3")}
+    emit("probe_redesign_summary", seconds=time.perf_counter() - t_start,
+         tool_launches=launches, within_tolerance=ok)
+    return dict(ok=ok, launches=launches, t3=dict(
+        ms=modes["thread_k13"]["ms"],
+        ms_first_design=modes["thread_k13"]["ms_first_design"],
+        library_ms=lib_ms[lib_call], library_call=lib_call),
+        t9=dict(ms=t9_new, ms_first_design=t9_first, library_ms=t9_lib,
+                launch_floor_ms=floor_ms))
 
 
 def main():
@@ -2163,6 +2342,12 @@ def main():
                              "version")
     first = redesign["first"]
 
+    # ---- 12. the redesigned T3 and T9 against their first design
+    probe_redesign = probe_redesign_phases(torch, ptxas)
+    if not probe_redesign["ok"]:
+        raise AssertionError("a redesigned probe kernel (T3 or T9) differs "
+                             "from its first design or its plain version")
+
     # ---- 8. kernels; launches are those of the training main path, and
     # of the late path for the gated variants
     k1g, k2g = late["k1"], late["k2"]
@@ -2218,14 +2403,19 @@ def main():
     # the tools run on no main path: launches 0 there, their own count in
     # tool_launches; ms is T1/T2 full on the photometric stream, T3's
     # thread mode at k 13 and T4's serial mode (every variant and mode in
-    # the lines of phase group 9)
+    # the lines of phase group 9); T3's ms, ms_first_design and library_ms
+    # are phase group 12's back-to-back times, its tool_launches groups 9
+    # and 12's
+    tools["T3"].update(probe_redesign["t3"])
+    tools["T3"]["tool_launches"] += probe_redesign["launches"][
+        "micro_reduce"]
     for key, name, source, replaces in (
             ("T1", "T1 bisect_fwd variants of K1", csrc + "bisect_fwd.cu",
              "tools/bisect_fwd.py:281"),
             ("T2", "T2 bisect_bwd variants of K2", csrc + "bisect_bwd.cu",
              "tools/bisect_bwd.py:199"),
             ("T3", "T3 micro_reduce lane reductions",
-             csrc + "micro_reduce.cu", "tools/micro_reduce.py:70"),
+             csrc + "micro_reduce_sm90.cuh", "tools/micro_reduce.py:70"),
             ("T4", "T4 micro_prefix prefix sums", csrc + "micro_prefix.cu",
              "tools/micro_prefix.py:105")):
         r = tools[key]
@@ -2236,12 +2426,18 @@ def main():
                                      "T4": "micro_prefix"}[key]],
             tool_launches=r["tool_launches"], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r.get("library_ms")))
+            bound_by=r["bound_by"], library_ms=r.get("library_ms"),
+            **{k: r[k] for k in ("ms_first_design", "library_call")
+               if k in r}))
     # T5-T9: launches are those of the probes' path in phase group 10 (each
     # tool's entry points once), tool_launches all of the group's, CUDA-graph
     # replays included; ms is T5's base variant and T6 at sb 128 (CUDA
     # events), the device time of the copies of the street's padded
-    # tile_offsets and of T9 (every variant in the lines of phase group 10)
+    # tile_offsets and of T9 (every variant in the lines of phase group 10);
+    # T9's ms, ms_first_design, library_ms and launch floor are phase group
+    # 12's, its tool_launches groups 10 and 12's
+    probes["T9"].update(probe_redesign["t9"])
+    probes["T9"]["tool_launches"] += probe_redesign["launches"]["mmt3"]
     for key, name, source, replaces in (
             ("T5", "T5 micro_floor visit-stream floor",
              csrc + "micro_floor.cu", "tools/micro_floor.py:115"),
@@ -2252,7 +2448,7 @@ def main():
             ("T8", "T8 probe_tax identity", csrc + "identity.cu",
              "tools/probe_tax.py:75"),
             ("T9", "T9 probe_mmt3 split-precision contraction",
-             csrc + "mmt3.cu", "tools/probe_mmt3.py:56")):
+             csrc + "mmt3_sm90.cuh", "tools/probe_mmt3.py:56")):
         r = probes[key]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -2260,7 +2456,9 @@ def main():
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
-            **{k: r[k] for k in ("ms_real_steps", "csr_ms") if k in r}))
+            **{k: r[k] for k in ("ms_real_steps", "csr_ms",
+                                 "ms_first_design", "launch_floor_ms")
+               if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,8 +1,10 @@
-// cp.async helpers of the redesigned blend kernels (blend_fwd_sm90.cuh,
-// blend_bwd_sm90.cuh): 4-byte copies from device to shared memory that
-// bypass the registers and complete asynchronously, grouped per batch.
-// 4-byte copies need only the f32 alignment that every slot of the
-// lane-major records has, whatever a tile's offset in the stream.
+// cp.async helpers of the redesigned kernels: copies from device to
+// shared memory that bypass the registers and complete asynchronously,
+// grouped per batch. The blend kernels (blend_fwd_sm90.cuh,
+// blend_bwd_sm90.cuh) copy 4 bytes at a time, the f32 alignment that
+// every slot of the lane-major records has, whatever a tile's offset in
+// the stream; T3 (micro_reduce_sm90.cuh) copies 16-byte pieces of whole
+// rows.
 
 #pragma once
 
@@ -13,6 +15,14 @@ namespace su_async {
 __device__ __forceinline__ void copy4(float* smem, const float* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// 16 bytes, both addresses 16-byte aligned; cached in L2 only.
+__device__ __forceinline__ void copy16(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
 }

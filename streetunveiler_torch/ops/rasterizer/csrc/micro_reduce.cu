@@ -27,10 +27,16 @@
 // full (the TPU walked them in one sequential grid); each slice writes
 // partial sums [nsplit, 512, 16] and a second kernel adds them in a fixed
 // order into out, so the result does not vary from run to run.
+//
+// This file keeps that first design (`su_micro_reduce_first`); the entry
+// `su_micro_reduce` runs its redesign for the H100 (micro_reduce_sm90.cuh),
+// which gives every output bit for bit the same.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "micro_reduce_sm90.cuh"
 
 namespace {
 
@@ -240,10 +246,10 @@ cudaError_t launch_mma(const float* x, int nv, int nsplit, float* partial,
 // x [512, nv * 128] f32; partial [nsplit, 512, 16] f32 scratch; out
 // [512, 128] f32. mode: 0 pair (k = 0), 1 thread and 2 warp (k 4, 8, 13),
 // 3 mma (k 8, 13); nv must be a multiple of nsplit. Returns
-// cudaGetLastError().
-extern "C" int su_micro_reduce(int mode, int k, const float* x, int nv,
-                               int nsplit, float* partial, float* out,
-                               int device, void* stream) {
+// cudaGetLastError(). The first design.
+extern "C" int su_micro_reduce_first(int mode, int k, const float* x, int nv,
+                                     int nsplit, float* partial, float* out,
+                                     int device, void* stream) {
   if (nv < 1 || nsplit < 1 || nv % nsplit != 0 || mode < 0 ||
       mode >= kNumReduceModes)
     return (int)cudaErrorInvalidValue;
@@ -268,4 +274,17 @@ extern "C" int su_micro_reduce(int mode, int k, const float* x, int nv,
   if (err != cudaSuccess) return (int)err;
   reduce_partials<<<kP, kS, 0, s>>>(partial, nsplit, out);
   return (int)cudaGetLastError();
+}
+
+// The same function and arguments, by the redesign (micro_reduce_sm90.cuh).
+extern "C" int su_micro_reduce(int mode, int k, const float* x, int nv,
+                               int nsplit, float* partial, float* out,
+                               int device, void* stream) {
+  if (nv < 1 || nsplit < 1 || nv % nsplit != 0 || mode < 0 ||
+      mode >= kNumReduceModes)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)su_reduce_sm90::run(mode, k, x, nv, nsplit, partial, out,
+                                  (cudaStream_t)stream);
 }

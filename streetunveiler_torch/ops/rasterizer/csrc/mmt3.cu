@@ -35,10 +35,15 @@
 // 4, 6 and lanes 16-31 columns 1, 3, 5). A first version ran one block of
 // 32 warps reading w from global memory row-strided: its 16 lanes of a
 // load touched 16 cache lines, and the one SM took 0.20 ms.
+//
+// This file keeps that first design (`su_mmt3_first`); the entry `su_mmt3`
+// runs its redesign for the H100 (mmt3_sm90.cuh), bit for bit the same.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mmt3_sm90.cuh"
 
 namespace {
 
@@ -177,12 +182,21 @@ mmt3_kernel(const float* __restrict__ w, const float* __restrict__ b,
 }  // namespace
 
 // w [512, 128] and b [8, 128] f32 (row 7 zero); oa, ob, oc, ot [512, 7]
-// f32. Returns cudaGetLastError().
-extern "C" int su_mmt3(const float* w, const float* b, float* oa, float* ob,
-                       float* oc, float* ot, int device, void* stream) {
+// f32. Returns cudaGetLastError(). The first design.
+extern "C" int su_mmt3_first(const float* w, const float* b, float* oa,
+                             float* ob, float* oc, float* ot, int device,
+                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   mmt3_kernel<<<kP / kRows, 32, 0, (cudaStream_t)stream>>>(w, b, oa, ob, oc,
                                                         ot);
   return (int)cudaGetLastError();
+}
+
+// The same function and arguments, by the redesign (mmt3_sm90.cuh).
+extern "C" int su_mmt3(const float* w, const float* b, float* oa, float* ob,
+                       float* oc, float* ot, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)su_mmt3_sm90::run(w, b, oa, ob, oc, ot, (cudaStream_t)stream);
 }

@@ -169,9 +169,12 @@ def load_library() -> ctypes.CDLL:
                          "su_bisect_bwd_occupancy"):
                 getattr(lib, name).argtypes = [i32, i32, i32, vp]
                 getattr(lib, name).restype = i32
-            lib.su_micro_reduce.argtypes = [i32, i32, vp, i32, i32, vp, vp,
-                                            i32, vp]
-            lib.su_micro_reduce.restype = i32
+            # T3 and T9: the redesign (su_micro_reduce, su_mmt3) and the
+            # first design (*_first) take the same arguments
+            for name in ("su_micro_reduce", "su_micro_reduce_first"):
+                getattr(lib, name).argtypes = [i32, i32, vp, i32, i32, vp,
+                                               vp, i32, vp]
+                getattr(lib, name).restype = i32
             lib.su_micro_prefix.argtypes = [i32, vp, ctypes.c_longlong, i32,
                                             vp, i32, vp]
             lib.su_micro_prefix.restype = i32
@@ -181,8 +184,10 @@ def load_library() -> ctypes.CDLL:
             lib.su_micro_floor.restype = i32
             lib.su_identity.argtypes = [vp, vp, ctypes.c_longlong, i32, vp]
             lib.su_identity.restype = i32
-            lib.su_mmt3.argtypes = [vp, vp, vp, vp, vp, vp, i32, vp]
-            lib.su_mmt3.restype = i32
+            for name in ("su_mmt3", "su_mmt3_first"):
+                getattr(lib, name).argtypes = [vp, vp, vp, vp, vp, vp, i32,
+                                               vp]
+                getattr(lib, name).restype = i32
             lib.su_error_string.argtypes = [i32]
             lib.su_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -12,12 +12,19 @@ sums), ``warp`` (vpu: a warp per row with shuffle sums, as K2 sums),
 ``mma`` (mxu at Precision.DEFAULT: one tensor-core product per block,
 bf16 operands, f32 accumulation).
 
+The kernel has two designs with the same outputs bit for bit:
+``redesign`` (the default, ``csrc/micro_reduce_sm90.cuh``: the rows'
+512-byte block segments staged through a ring of cp.async copies in
+shared memory, and the warp mode's sums by a reduce-scatter) and
+``first`` (``csrc/micro_reduce.cu``, the TPU tool's translated as it
+stood).
+
 ``micro_reduce`` runs the plain PyTorch version on a CPU tensor and the
 kernel on a CUDA tensor. Run on the card: ``python -m
-streetunveiler_torch.tools.micro_reduce [--device cuda]`` times every
-(mode, k) of the TPU tool at NV = 4096 (1.07 GB, drawn from a seed on the
-device) and prints ms and ns per block; ``--device cpu --nv 8`` checks the
-plain versions only.
+streetunveiler_torch.tools.micro_reduce [--device cuda] [--design first]``
+times every (mode, k) of the TPU tool at NV = 4096 (1.07 GB, drawn from a
+seed on the device) and prints ms and ns per block; ``--device cpu --nv
+8`` checks the plain versions only.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ MODES = (("pair", 0), ("thread", 4), ("thread", 8), ("thread", 13),
 MODE_INDEX = {"pair": 0, "thread": 1, "warp": 2, "mma": 3}
 PRECISION = {"pair": "f32", "thread": "f32", "warp": "f32",
              "mma": "bf16 operands, f32 accumulation, one pass"}
+DESIGNS = ("redesign", "first")
 
 
 def weights(k: int, device="cpu"):
@@ -73,17 +81,26 @@ def micro_reduce_plain(mode: str, k: int, x):
     return out
 
 
-def micro_reduce_library(k: int, x):
-    """One PyTorch reduction computing the same sums: the row sums of
-    ``x.view(512, NV, 128)`` times the weights (timed as a yardstick)."""
+def micro_reduce_library(w, x):
+    """PyTorch's reductions computing the same sums (timed as a
+    yardstick): the row sums of ``x.view(512, NV, 128)`` times the weights
+    ``w`` (``weights(k)`` on x's device)."""
     nv = x.shape[1] // S
-    return x.view(P, nv, S).sum(-1).sum(-1)[:, None] * weights(k, x.device)
+    return x.view(P, nv, S).sum(-1).sum(-1)[:, None] * w
 
 
-def micro_reduce_cuda(mode: str, k: int, x):
-    """Launch the T3 kernel (``csrc/micro_reduce.cu``) on the current
-    stream."""
+def micro_reduce_library_one(w, x):
+    """The same yardstick as one reduction: ``x.sum(dim=1)`` times ``w``."""
+    return x.sum(dim=1)[:, None] * w
+
+
+def micro_reduce_cuda(mode: str, k: int, x, design: str = "redesign"):
+    """Launch the T3 kernel on the current stream: its ``redesign``
+    (``csrc/micro_reduce_sm90.cuh``) or its ``first`` design
+    (``csrc/micro_reduce.cu``)."""
     _check_mode(mode, k)
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
     if x.device.type != "cuda" or x.dtype != torch.float32 \
             or not x.is_contiguous() or x.dim() != 2 or x.shape[0] != P \
             or x.shape[1] % S:
@@ -98,18 +115,22 @@ def micro_reduce_cuda(mode: str, k: int, x):
     out = torch.empty((P, S), dtype=torch.float32, device=x.device)
     index = x.device.index if x.device.index is not None \
         else torch.cuda.current_device()
-    rc = lib.su_micro_reduce(MODE_INDEX[mode], k, x.data_ptr(), nv, nsplit,
-                             partial.data_ptr(), out.data_ptr(), index,
-                             torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_lib.check(rc, f"micro_reduce {mode} launch")
+    entry = lib.su_micro_reduce if design == "redesign" \
+        else lib.su_micro_reduce_first
+    rc = entry(MODE_INDEX[mode], k, x.data_ptr(), nv, nsplit,
+               partial.data_ptr(), out.data_ptr(), index,
+               torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_lib.check(rc, f"micro_reduce {mode} ({design}) launch")
     cuda_lib.launch_counts["micro_reduce"] += 1
     return out
 
 
-def micro_reduce(mode: str, k: int, x):
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    fn = micro_reduce_plain if x.device.type == "cpu" else micro_reduce_cuda
-    return fn(mode, k, x)
+def micro_reduce(mode: str, k: int, x, design: str = "redesign"):
+    """The kernel (``design``) on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if x.device.type == "cpu":
+        return micro_reduce_plain(mode, k, x)
+    return micro_reduce_cuda(mode, k, x, design)
 
 
 def make_input(nv: int = NV, seed: int = 0, device="cuda"):
@@ -125,6 +146,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--nv", type=int, default=NV)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--design", choices=DESIGNS, default="redesign",
+                    help="the kernel's design on the card")
     args = ap.parse_args(argv)
     cpu = torch.device(args.device).type == "cpu"
     if not cpu:
@@ -132,12 +155,13 @@ def main(argv=None):
         print(timing.card(), flush=True)
     x = make_input(args.nv, device=args.device)
     for mode, k in MODES:
-        out = micro_reduce(mode, k, x)
+        out = micro_reduce(mode, k, x, args.design)
         line = dict(mode=mode, k=k, nv=args.nv, precision=PRECISION[mode],
                     checksum=float(out.sum()))
         if not cpu:
-            ms = timing.median_ms(lambda: micro_reduce_cuda(mode, k, x),
-                                  args.reps)
+            line["design"] = args.design
+            ms = timing.median_ms(
+                lambda: micro_reduce_cuda(mode, k, x, args.design), args.reps)
             line.update(ms=ms, ns_per_block=ms * 1e6 / args.nv)
         print(json.dumps(line), flush=True)
 

@@ -21,10 +21,17 @@ f32 accumulation that differ only in where b comes from: (a) 7 rows with
 the 8th fragment column a zero in registers, (b) the 8 rows from memory,
 (c) bᵀ staged in shared memory and read in the col-major fragment layout.
 
+The kernel has two designs with the same outputs bit for bit:
+``redesign`` (the default, ``csrc/mmt3_sm90.cuh``: seven warps a block of
+16 rows, a way a warp and one truth sum a thread of the other four, every
+operand from shared memory) and ``first`` (``csrc/mmt3.cu``: one warp a
+block).
+
 ``mmt3`` runs the plain PyTorch version on CPU tensors and the kernel on
 CUDA tensors. Run on the card: ``python -m
-streetunveiler_torch.tools.probe_mmt3 [--device cuda]`` prints each way's
-largest error relative to the truth's largest value, as the tool does.
+streetunveiler_torch.tools.probe_mmt3 [--device cuda] [--design first]``
+prints each way's largest error relative to the truth's largest value, as
+the tool does.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from streetunveiler_torch.ops.rasterizer import cuda_lib
 
 P, S, Q = 512, 128, 7
 WAYS = ("a_mmT3_q7", "b_mmT3_pad8", "c_transpose_mm")
+DESIGNS = ("redesign", "first")
 
 
 def make_inputs(device="cuda"):
@@ -99,9 +107,12 @@ def mmt3_library(w, b):
     return torch.matmul(w, b[:Q].T)
 
 
-def mmt3_cuda(w, b):
-    """Launch the T9 kernel (``csrc/mmt3.cu``) on the current stream."""
+def mmt3_cuda(w, b, design: str = "redesign"):
+    """Launch the T9 kernel on the current stream: its ``redesign``
+    (``csrc/mmt3_sm90.cuh``) or its ``first`` design (``csrc/mmt3.cu``)."""
     _check(w, b)
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
     if w.device.type != "cuda" or not (w.is_contiguous()
                                        and b.is_contiguous()):
         raise ValueError("w and b must be contiguous CUDA tensors, got "
@@ -111,18 +122,20 @@ def mmt3_cuda(w, b):
             for _ in range(4)]
     index = w.device.index if w.device.index is not None \
         else torch.cuda.current_device()
-    rc = lib.su_mmt3(w.data_ptr(), b.data_ptr(),
-                     *[o.data_ptr() for o in outs], index,
-                     torch.cuda.current_stream(w.device).cuda_stream)
-    cuda_lib.check(rc, "mmt3 launch")
+    entry = lib.su_mmt3 if design == "redesign" else lib.su_mmt3_first
+    rc = entry(w.data_ptr(), b.data_ptr(), *[o.data_ptr() for o in outs],
+               index, torch.cuda.current_stream(w.device).cuda_stream)
+    cuda_lib.check(rc, f"mmt3 ({design}) launch")
     cuda_lib.launch_counts["mmt3"] += 1
     return tuple(outs)
 
 
-def mmt3(w, b):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
-    fn = mmt3_plain if w.device.type == "cpu" else mmt3_cuda
-    return fn(w, b)
+def mmt3(w, b, design: str = "redesign"):
+    """The kernel (``design``) on CUDA tensors, the plain version on CPU
+    tensors."""
+    if w.device.type == "cpu":
+        return mmt3_plain(w, b)
+    return mmt3_cuda(w, b, design)
 
 
 def truth_errors(outs):
@@ -133,17 +146,18 @@ def truth_errors(outs):
             for name, x in zip(WAYS, outs[:3])}
 
 
-def run(w, b, reps=10):
+def run(w, b, reps=10, design="redesign"):
     """The contraction once through ``mmt3``, then, on the card and with
     ``reps`` > 0, the kernel timed (median of ``reps`` CUDA-event times).
     Returns a dict with the outputs (``out``) and each way's error against
     the truth."""
     from streetunveiler_torch.tools import timing
-    outs = mmt3(w, b)
+    outs = mmt3(w, b, design)
     line = dict(device=str(w.device), max_rel_err_vs_truth=truth_errors(outs),
                 out=outs)
     if w.device.type == "cuda" and reps > 0:
-        line["ms"] = timing.median_ms(lambda: mmt3_cuda(w, b), reps)
+        line.update(design=design, ms=timing.median_ms(
+            lambda: mmt3_cuda(w, b, design), reps))
     return line
 
 
@@ -152,11 +166,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--design", choices=DESIGNS, default="redesign",
+                    help="the kernel's design on the card")
     args = ap.parse_args(argv)
     if torch.device(args.device).type != "cpu":
         timing.require_cuda(args.device)
         print(timing.card(), flush=True)
-    line = run(*make_inputs(args.device), args.reps)
+    line = run(*make_inputs(args.device), args.reps, args.design)
     line.pop("out")
     print(json.dumps(line), flush=True)
 
