@@ -52,7 +52,19 @@ drives the two paths of the port on the 300k-surfel street scene at
   against their first design (``csrc/micro_reduce.cu``, ``csrc/mmt3.cu``),
   within their tolerances of the plain versions, both timed in turns
   beside the library yardsticks and the launch floor
-  (``micro_reduce_redesign``, ``mmt3_redesign``).
+  (``micro_reduce_redesign``, ``mmt3_redesign``);
+* K3's device time and T2 on K2's H100 design (phase group 13): K3
+  (``csrc/expand_sm90.cuh``: blocks of consecutive surfels, their slot
+  range stored through shared memory with coalesced stores) bit for bit against its first design (``csrc/expand.cu``) and its plain
+  version at the street's and the overflow capacity, both timed by
+  CUDA-graph replays in turns (``k3_device_time`` in section 3,
+  ``k3_redesign``); the binning stage split into its parts
+  (``binning_split``); T2's variants rebuilt on ``csrc/blend_bwd_sm90.cuh``
+  (``csrc/bisect_bwd_sm90*.cu``) against their plain versions on the dense
+  stack, ``full`` bit for bit and register for register against the
+  production K2 at nq 6, 12 and (12, 5), every variant timed in turns
+  beside its first-design counterpart, and gated K2's time split by both
+  designs' variants (``bisect_bwd_sm90``).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last two lines are the kernels table and
@@ -929,12 +941,14 @@ def ptxas_summary(log):
     gated at (6, 3) and (12, 5), as K<nq,G>; K3), and every instantiation
     of the measurement tools (T1<G,variant>, T2<nq,G,variant>, T3 and T4
     kernels, T5/T6<width,flags> of csrc/micro_floor.cu, the T7/T8 copy,
-    T9; T3's and T9's redesigns as ``*_sm90``), named by the translation
-    unit that built them."""
+    T9; T3's and T9's redesigns as ``*_sm90``, T2 on K2's H100 design as
+    ``T2 sm90<nq,G,variant>``), named by the translation unit that built
+    them."""
     import re
     from streetunveiler_torch.tools import bisect_bwd, bisect_fwd
     keep = {"K1<6,0>", "K1<9,0>", "K1<12,0>", "K1<6,3>", "K1<12,5>",
-            "K2<6,0>", "K2<9,0>", "K2<12,0>", "K2<6,3>", "K2<12,5>", "K3"}
+            "K2<6,0>", "K2<9,0>", "K2<12,0>", "K2<6,3>", "K2<12,5>", "K3",
+            "K3 sm90", "K3 sm90 no cull"}
     out, name, unit = {}, None, ""
     for line in log.splitlines():
         if line.startswith("== nvcc "):
@@ -943,8 +957,8 @@ def ptxas_summary(log):
             ints = lambda m: [int(x) for x in m.groups()]
             fwd90 = re.search(r"blend_fwd_sm90_kernelILi(\d+)ELi(\d+)E",
                               line)
-            bwd90 = re.search(r"blend_bwd_sm90_kernelILi(\d+)ELi(\d+)E",
-                              line)
+            bwd90 = re.search(
+                r"blend_bwd_sm90_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
             fwd = re.search(r"blend_fwd_kernelILi(\d+)ELi(\d+)E", line)
             bwd = re.search(r"blend_bwd_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
                             line)
@@ -953,8 +967,11 @@ def ptxas_summary(log):
                 r"\d(reduce_[a-z]+(?:_sm90)?|prefix_[a-z]+|fold_partials)"
                 r"(?:ILi(\d+)E)?", line)
             walk = re.search(r"floor_walkILi(\d+)ELi(\d+)E", line)
-            if fwd90 or bwd90:
-                q, g = ints(fwd90 or bwd90)
+            if bwd90 and unit.startswith("bisect"):
+                q, g, v = ints(bwd90)
+                name = f"T2 sm90<{q},{g},{bisect_bwd.VARIANTS[v]}>"
+            elif fwd90 or bwd90:
+                q, g = ints(fwd90 or bwd90)[:2]
                 name = f"K{1 if fwd90 else 2}<{q},{g}>"
             elif fwd and unit.startswith("bisect"):
                 g, v = ints(fwd)
@@ -973,6 +990,8 @@ def ptxas_summary(log):
                 tag = "T3" if unit.startswith("micro_reduce") else "T4"
                 name = f"{tag} {probe.group(1)}" + (
                     f"<{probe.group(2)}>" if probe.group(2) else "")
+            elif "expand_sm90_kernel" in line:
+                name = "K3 sm90" + ("" if "ILb1E" in line else " no cull")
             else:
                 name = "K3" if "expand_kernel" in line else None
             if name and not name.startswith("T") and name not in keep:
@@ -1201,15 +1220,18 @@ def t1_vs_plain(torch, bf, k1_args):
     return out, ok
 
 
-def t2_vs_plain(torch, bb, a):
-    """Every T2 variant against its plain version on the arguments ``a``
-    of a backward: per record row 0..9+nq, the largest error over the
-    row's largest gradient (ROW_TOL_REL, as K2)."""
+def t2_vs_plain(torch, bb, a, design="first"):
+    """Every T2 variant of ``design`` against its plain version (the
+    design's batch and skip rule) on the arguments ``a`` of a backward:
+    per record row 0..9+nq, the largest error over the row's largest
+    gradient (ROW_TOL_REL, as K2)."""
+    from streetunveiler_torch.ops.rasterizer import tiles
     nq = a[8]
+    order = tiles.tile_order(a[1]) if design == "sm90" else None
     out, ok = {}, True
     for v in bb.VARIANTS:
-        got = bb.bisect_backward_cuda(v, *a)
-        want = bb.bisect_backward_plain(v, *a)
+        got = bb.bisect_backward_cuda(v, *a, design=design, tile_order=order)
+        want = bb.bisect_backward_plain(v, *a, **bb.DESIGNS[design])
         torch.cuda.synchronize()
         rows = 10 + nq
         err = rel_err(got[:rows], want[:rows], 1, 0.0)
@@ -1266,7 +1288,7 @@ def tool_phases(torch, photo_args, late_args, k2_photo):
         order = tiles.tile_order(a[1])
         acc_t, lk_t = bisect_fwd.bisect_forward_cuda("full", *k1_args)
         acc_k, lk_k = kernel.blend_forward_cuda(*k1_args, tile_order=order)
-        d_t = bisect_bwd.bisect_backward_cuda("full", *a)
+        d_t = bisect_bwd.bisect_backward_cuda("full", *a, design="first")
         d_k = kernel.blend_backward_cuda(*a, tile_order=order)
         torch.cuda.synchronize()
         fwd_equal = torch.equal(acc_t, acc_k) and torch.equal(lk_t, lk_k)
@@ -1306,7 +1328,8 @@ def tool_phases(torch, photo_args, late_args, k2_photo):
         for v in bisect_bwd.VARIANTS:
             buf = torch.zeros_like(a[0])
             ms = timing.median_ms(
-                lambda: bisect_bwd.bisect_backward_cuda(v, *a, out=buf),
+                lambda: bisect_bwd.bisect_backward_cuda(v, *a, out=buf,
+                                                        design="first"),
                 TOOL_REPS)
             bwd[v] = dict(ms=ms, evaluated_pairs=bisect_bwd.evaluated_pairs(
                 v, a[1], a[5], a[6], nq, n_gates))
@@ -1896,7 +1919,8 @@ def redesign_phases(torch, photo_args, sem_args, late_args, ptxas):
 
         # ---- K2, a fresh zeroed dgrad in each call of both designs
         new = lambda: kernel.blend_backward_cuda(*a, tile_order=order)
-        old = lambda: bisect_bwd.bisect_backward_cuda("full", *a)
+        old = lambda: bisect_bwd.bisect_backward_cuda("full", *a,
+                                                      design="first")
         d_n, d_o = new(), old()
         torch.cuda.synchronize()
         exact = torch.equal(d_n, d_o)
@@ -2080,6 +2104,270 @@ def probe_redesign_phases(torch, ptxas):
                 launch_floor_ms=floor_ms))
 
 
+# ---------------------------------------------------------------------------
+# Phase group 13: K3's device time, the binning stage split into its parts,
+# and T2 rebuilt on K2's H100 design (csrc/blend_bwd_sm90.cuh).
+
+BINNING_REPS = 10
+
+
+def k3_device_time(torch, k3_args):
+    """K3's device time from CUDA-graph replays (graph_ms, two turns),
+    beside the event time of 50 back-to-back host calls (cuda_ms: the
+    host's launch path when it is the longer) and the launch floor.
+    Returns the line's fields."""
+    from streetunveiler_torch.ops.rasterizer import tiles
+    fn = lambda: tiles.expand_duplicates_cuda(*k3_args)
+    replayed = collections.Counter()
+    runs = [graph_ms(torch, fn, replayed) for _ in range(2)]
+    host = cuda_ms(torch, fn, 50)
+    floor_ms = statistics.mean(launch_floor_ms(torch) for _ in range(2))
+    return dict(device_ms=statistics.mean(runs), device_ms_runs=runs,
+                host_path_ms=host, launch_floor_ms=floor_ms,
+                replayed_launches=replayed["expand"])
+
+
+def binning_split(torch, state, cam, cap):
+    """The step's binning stage (``bin_step``) and its parts, each alone
+    on the street's inputs: CUDA-event times of BINNING_REPS back-to-back
+    calls (as the step's stages) and device times from CUDA-graph replays.
+    Returns the line's fields."""
+    from streetunveiler_torch import renderer
+    from streetunveiler_torch.ops.rasterizer import kernel, tiles
+    from streetunveiler_torch.ops.rasterizer.preprocess import \
+        preprocess_surfels
+    from streetunveiler_torch.train.step import bin_step
+    settings = renderer._settings_for(cam, 1.0)
+    n = state.capacity
+    zeros3 = torch.zeros((n, 3), device="cuda")
+
+    def preprocess():
+        return preprocess_surfels(
+            state.params.xyz, state.get_scaling(), state.get_rotation(),
+            state.get_opacity()[:, 0], zeros3, cam.w2c, cam.K, settings)
+    with torch.no_grad():
+        sur = preprocess()
+        tw, th = kernel.TILE_W, kernel.TILE_H
+        w, h = cam.width, cam.height
+        tiles_x, tiles_y = -(-w // tw), -(-h // th)
+        n_tiles = tiles_x * tiles_y
+        rects = tiles.tile_rects(sur.center2d, sur.ext, sur.valid, w, h, tw,
+                                 th)
+        nt, cols = tiles.conic_cull(sur.cull, sur.center2d, rects, sur.valid,
+                                    tw, th)
+        order = tiles.depth_order(sur.depth, sur.valid)
+        tbl, dup_start = tiles.rank_table(rects, nt, cols, order)
+        k3_args = (tbl, dup_start, cap, tiles_x, n_tiles, True)
+        tile_id, surf_id = tiles.expand_duplicates_cuda(*k3_args)
+        capp = tile_id.numel()
+        tile_id, surf_id = tile_id[:cap], surf_id[:cap]
+        s_tile, _ = tiles.sort_by_tile(tile_id, surf_id)
+        off = tiles.csr_offsets(s_tile, n_tiles)
+    parts = dict(
+        preprocess=preprocess,
+        tile_rects=lambda: tiles.tile_rects(sur.center2d, sur.ext, sur.valid,
+                                            w, h, tw, th),
+        conic_cull=lambda: tiles.conic_cull(sur.cull, sur.center2d, rects,
+                                            sur.valid, tw, th),
+        depth_argsort=lambda: tiles.depth_order(sur.depth, sur.valid),
+        table_gather_cumsum=lambda: tiles.rank_table(rects, nt, cols, order),
+        k3=lambda: tiles.expand_duplicates_cuda(*k3_args),
+        tile_sort=lambda: tiles.sort_by_tile(tile_id, surf_id),
+        searchsorted=lambda: tiles.csr_offsets(s_tile, n_tiles),
+        tile_order=lambda: tiles.tile_order(off))
+    whole = lambda: bin_step(state, cam, duplicate_capacity=cap,
+                             device="cuda")
+    replayed = collections.Counter()
+    with torch.no_grad():
+        event = {k: cuda_ms(torch, fn, BINNING_REPS)
+                 for k, fn in parts.items()}
+        device = {k: graph_ms(torch, fn, replayed)
+                  for k, fn in parts.items()}
+        whole_event = cuda_ms(torch, whole, BINNING_REPS)
+        whole_device = graph_ms(torch, whole, replayed)
+    return dict(parts_ms=event, parts_device_ms=device,
+                parts_sum_ms=sum(event.values()),
+                parts_device_sum_ms=sum(device.values()),
+                bin_step_ms=whole_event, bin_step_device_ms=whole_device,
+                duplicates=int(dup_start[-1]), capacity=cap,
+                k3_slots=capp)
+
+
+def ptxas_numbers(lines):
+    """Registers, spill stores and loads and stack frame bytes of one
+    kernel's ptxas lines (``ptxas_summary``), or None."""
+    import re
+    if not lines:
+        return None
+    text = " ".join(lines)
+
+    def get(pattern):
+        m = re.search(pattern, text)
+        return int(m.group(1)) if m else None
+    return dict(registers=get(r"Used (\d+) registers"),
+                spill_stores=get(r"(\d+) bytes spill stores"),
+                spill_loads=get(r"(\d+) bytes spill loads"),
+                stack_frame=get(r"(\d+) bytes stack frame"))
+
+
+def k3_redesign(torch, k3_args, k3_over, ptxas):
+    """K3's H100 design (csrc/expand_sm90.cuh) against its first design
+    (csrc/expand.cu) and its plain version at the street's capacity and at
+    the overflow capacity: bit for bit; both designs' device times from
+    CUDA-graph replays (graph_ms) in the turns first, new, new, first; the
+    event time of 50 back-to-back host calls of each; the byte bound, the
+    launch floor, ptxas. Returns the line's capacities and the verdict."""
+    from streetunveiler_torch.ops.rasterizer import tiles
+    replayed = collections.Counter()
+    out, ok = {}, True
+    for label, a in (("street", k3_args), ("overflow", k3_over)):
+        new = tiles.expand_duplicates_cuda(*a)
+        first = tiles.expand_duplicates_cuda(*a, design="first")
+        plain = tiles.expand_duplicates_plain(*a)
+        torch.cuda.synchronize()
+        eq_first = all(torch.equal(x, y) for x, y in zip(new, first))
+        eq_plain = all(torch.equal(x, y) for x, y in zip(new, plain))
+        capp = new[0].numel()
+        del new, first, plain
+        call = {d: (lambda d=d: tiles.expand_duplicates_cuda(*a, design=d))
+                for d in tiles.DESIGNS}
+        t = {"first": [], "sm90": []}
+        for which in ("first", "sm90", "sm90", "first"):
+            t[which].append(graph_ms(torch, call[which], replayed))
+        ms, ms_first = statistics.mean(t["sm90"]), statistics.mean(t["first"])
+        nbytes = 4 * (a[0].numel() + a[1].numel() + 2 * capp)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[label] = dict(
+            capacity=a[2], slots=capp, duplicates=int(a[1][-1]),
+            bit_equal_first_design=eq_first, bit_equal_plain=eq_plain,
+            device_ms=ms, device_ms_first_design=ms_first,
+            ratio=ms / ms_first, device_ms_runs=t,
+            host_path_ms=cuda_ms(torch, call["sm90"], 50),
+            host_path_ms_first_design=cuda_ms(torch, call["first"], 50),
+            bytes=nbytes, bound_ms=bound_ms, share_of_bound=bound_ms / ms,
+            meets_target=ms <= 2 * bound_ms)
+        ok = ok and eq_first and eq_plain
+    floor_ms = statistics.mean(launch_floor_ms(torch) for _ in range(2))
+    emit("k3_redesign", capacities=out, launch_floor_ms=floor_ms,
+         ptxas=ptxas.get("K3 sm90"), ptxas_first_design=ptxas.get("K3"),
+         replayed_launches=replayed["expand"], within_tolerance=ok,
+         note="first design = csrc/expand.cu (su_expand_first), redesign = "
+              "csrc/expand_sm90.cuh; device_ms: 20 calls captured in a "
+              "CUDA graph, the median replay over the calls (graph_ms), "
+              "mean of two turns each, in the turns first, new, new, first; "
+              "host_path_ms: 50 back-to-back calls between CUDA events; "
+              "meets_target: device_ms <= 2 x bound_ms")
+    return dict(ok=ok, capacities=out, launch_floor_ms=floor_ms)
+
+
+# the parts of gated K2's time the sm90 T2 variants split off: full minus
+# the variant (the floor is a time of its own)
+K2_SPLIT = {"payload_gradient_sums": "no_dq", "pair_vjp": "no_vjp",
+            "omega_gq_q": "no_gqqc", "suffix_updates": "no_suffmm",
+            "division_rebuild": "no_exp"}
+
+
+def k2_split(variants):
+    """Gated K2's time split by the T2 variants' times ({variant: ms})."""
+    full = variants["full"]
+    parts = {k: full - variants[v] for k, v in K2_SPLIT.items()}
+    return dict(full=full, walk_and_staging=variants["floor"], **parts,
+                not_split=full - variants["floor"] - sum(parts.values()))
+
+
+def bisect_bwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas):
+    """T2 on K2's H100 design (csrc/bisect_bwd_sm90*.cu): every variant
+    against its plain version (batch 64, the exact pair skip) on the
+    dense stack at G 0 and 5; ``full`` bit for bit against the production
+    K2 with the same ptxas registers and spills, at nq 6, nq 12 and
+    (12, 5) on the captured full-width streams; every variant timed in the
+    turns first, new, new, first beside its first-design counterpart
+    (median of TOOL_REPS CUDA-event times, dgrad zeroed outside the timed
+    launches); gated K2's time split by both designs' variants. Returns
+    the kernels-row numbers and the verdict."""
+    from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
+    from streetunveiler_torch.tools import bisect_bwd, street, timing
+    cuda_lib.reset_launch_counts()
+    t_start = time.perf_counter()
+    ok = True
+    dense = street.dense_streams("cuda")
+    for n_gates, label in ((0, "photometric"), (5, "late")):
+        k1_args = dense[n_gates]
+        acc, lk = kernel.blend_forward_cuda(
+            *k1_args, tile_order=tiles.tile_order(k1_args[1]))
+        nq = k1_args[5]
+        a = k1_args[:5] + (acc, lk, bisect_bwd.cotangents(acc, nq, n_gates),
+                           nq, n_gates)
+        res, v_ok = t2_vs_plain(torch, bisect_bwd, a, "sm90")
+        emit(f"bisect_bwd_sm90_vs_plain_{label}_dense", nq=nq,
+             n_gates=n_gates, variants=res, within_tolerance=v_ok)
+        ok = ok and v_ok
+
+    forms, row = {}, {}
+    for a, label in ((photo_args, "photometric"), (sem_args, "semantic"),
+                     (late_args, "late")):
+        nq, n_gates = a[8], a[9]
+        order = tiles.tile_order(a[1])
+        d_t = bisect_bwd.bisect_backward_cuda("full", *a, tile_order=order)
+        d_k = kernel.blend_backward_cuda(*a, tile_order=order)
+        torch.cuda.synchronize()
+        exact = torch.equal(d_t, d_k)
+        if label == "photometric":
+            want = bisect_bwd.bisect_backward_plain(
+                "full", *a, **bisect_bwd.DESIGNS["sm90"])
+            row["max_abs_err"] = float((d_t - want).abs().max())
+            del want
+        del d_t, d_k
+        regs = ptxas_numbers(ptxas.get(f"T2 sm90<{nq},{n_gates},full>"))
+        regs_k2 = ptxas_numbers(ptxas.get(f"K2<{nq},{n_gates}>"))
+        same_regs = regs is not None and regs == regs_k2
+        times = {}
+        for v in (bisect_bwd.VARIANTS if label != "semantic" else ("full",)):
+            buf_first, buf_new = torch.zeros_like(a[0]), torch.zeros_like(a[0])
+            call = dict(
+                first=lambda: bisect_bwd.bisect_backward_cuda(
+                    v, *a, out=buf_first, design="first"),
+                sm90=lambda: bisect_bwd.bisect_backward_cuda(
+                    v, *a, out=buf_new, tile_order=order))
+            t = {"first": [], "sm90": []}
+            for which in ("first", "sm90", "sm90", "first"):
+                t[which].append(timing.median_ms(call[which], TOOL_REPS))
+            del buf_first, buf_new
+            times[v] = dict(
+                ms=statistics.mean(t["sm90"]),
+                ms_first_design=statistics.mean(t["first"]), ms_runs=t,
+                ptxas=ptxas_numbers(ptxas.get(f"T2 sm90<{nq},{n_gates},{v}>")),
+                ptxas_first_design=ptxas_numbers(
+                    ptxas.get(f"T2<{nq},{n_gates},{v}>")))
+        for v in times:
+            times[v]["ms_minus_full"] = times[v]["ms"] - times["full"]["ms"]
+        forms[label] = dict(nq=nq, n_gates=n_gates,
+                            full_bit_exact_vs_production=exact,
+                            ptxas_full=regs, ptxas_production=regs_k2,
+                            same_registers_and_spills=same_regs,
+                            variants=times)
+        ok = ok and exact and same_regs
+    late = forms["late"]["variants"]
+    split = k2_split({v: late[v]["ms"] for v in late})
+    split_first = k2_split({v: late[v]["ms_first_design"] for v in late})
+    emit("bisect_bwd_sm90", forms=forms, gated_k2_split=split,
+         gated_k2_split_first_design=split_first, reps=TOOL_REPS,
+         note="sm90 = csrc/blend_bwd_sm90.cuh's kernel on each variant "
+              "(csrc/bisect_bwd_sm90*.cu), first = csrc/blend_bwd.cuh's; "
+              "ms = mean of the medians of two runs of "
+              f"{TOOL_REPS} CUDA-event times each (ms_runs, in the turns "
+              "first, new, new, first), dgrad zeroed outside the timed "
+              "launches; gated_k2_split at (12, 5): full minus each "
+              "variant, the floor's own time as walk_and_staging")
+    torch.cuda.synchronize()
+    launches = cuda_lib.launch_counts["bisect_bwd"]
+    emit("bisect_bwd_sm90_summary", seconds=time.perf_counter() - t_start,
+         tool_launches=launches, within_tolerance=ok)
+    photo = forms["photometric"]["variants"]["full"]
+    row.update(ms=photo["ms"], ms_first_design=photo["ms_first_design"])
+    return dict(ok=ok, launches=launches, t2=row)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2228,6 +2516,9 @@ def main():
          bytes=k3_bytes, bound_ms=k3_bound)
     if not (k3_equal and over_equal):
         raise AssertionError("K3 differs from its plain version")
+    emit("k3_device_time", **k3_device_time(torch, k3_args), bytes=k3_bytes,
+         bound_ms=k3_bound, note="device_ms: CUDA-graph replays (graph_ms); "
+         "host_path_ms: 50 back-to-back host calls between CUDA events")
 
     # ---- 4. K1 against its plain version, nq=6 and nq=9
     packT = kernel.pack_geometry_T(sur, N_SURFELS)
@@ -2348,15 +2639,37 @@ def main():
         raise AssertionError("a redesigned probe kernel (T3 or T9) differs "
                              "from its first design or its plain version")
 
+    # ---- 13. K3's redesign against its first design, the binning stage
+    # split into its parts, T2 on K2's H100 design
+    k3r = k3_redesign(torch, k3_args, k3_over, ptxas)
+    emit("binning_split", **binning_split(torch, state, cam, cap),
+         note="parts_ms: CUDA-event times of back-to-back calls, each part "
+              "alone on the street's inputs; parts_device_ms: CUDA-graph "
+              "replays (graph_ms); bin_step = the step's binning stage")
+    t2_sm90 = bisect_bwd_sm90_phases(torch, k2[6]["args"], k2[12]["args"],
+                                     late["args"], ptxas)
+    if not (k3r["ok"] and t2_sm90["ok"]):
+        raise AssertionError("K3's redesign differs from its first design or "
+                             "its plain version, or T2 on K2's H100 design "
+                             "disagrees with its plain version or with the "
+                             "production K2")
+
     # ---- 8. kernels; launches are those of the training main path, and
     # of the late path for the gated variants
     k1g, k2g = late["k1"], late["k2"]
     csrc = "streetunveiler_torch/ops/rasterizer/csrc/"
+    # K3: device times (CUDA-graph replays) of both designs at the street's
+    # capacity, the event time of back-to-back host calls beside them
+    k3s = k3r["capacities"]["street"]
     kernels = [
         dict(name="K3 tile expansion", route="cuda",
-             source="streetunveiler_torch/ops/rasterizer/csrc/expand.cu",
+             source=csrc + "expand_sm90.cuh",
              replaces="streetunveiler_tpu/ops/rasterizer/tiles.py:160",
-             launches=train_launches["expand"], max_abs_err=0.0, ms=k3_ms,
+             launches=train_launches["expand"], max_abs_err=0.0,
+             ms=k3s["device_ms"],
+             ms_first_design=k3s["device_ms_first_design"],
+             host_path_ms=k3s["host_path_ms"],
+             launch_floor_ms=k3r["launch_floor_ms"],
              plain_ms=k3_plain_ms, bound_ms=k3_bound, bound_by="bytes"
              if k3_bytes / HBM_BYTES_PER_S
              >= K3_OPS_PER_SLOT * capp / F32_OPS_PER_S else "operations",
@@ -2403,17 +2716,21 @@ def main():
     # the tools run on no main path: launches 0 there, their own count in
     # tool_launches; ms is T1/T2 full on the photometric stream, T3's
     # thread mode at k 13 and T4's serial mode (every variant and mode in
-    # the lines of phase group 9); T3's ms, ms_first_design and library_ms
-    # are phase group 12's back-to-back times, its tool_launches groups 9
-    # and 12's
+    # the lines of phase group 9); T2's ms, ms_first_design and
+    # max_abs_err are phase group 13's (K2's H100 design), its
+    # tool_launches groups 9 and 13's; T3's ms, ms_first_design and
+    # library_ms are phase group 12's back-to-back times, its
+    # tool_launches groups 9 and 12's
+    tools["T2"].update(t2_sm90["t2"])
+    tools["T2"]["tool_launches"] += t2_sm90["launches"]
     tools["T3"].update(probe_redesign["t3"])
     tools["T3"]["tool_launches"] += probe_redesign["launches"][
         "micro_reduce"]
     for key, name, source, replaces in (
             ("T1", "T1 bisect_fwd variants of K1", csrc + "bisect_fwd.cu",
              "tools/bisect_fwd.py:281"),
-            ("T2", "T2 bisect_bwd variants of K2", csrc + "bisect_bwd.cu",
-             "tools/bisect_bwd.py:199"),
+            ("T2", "T2 bisect_bwd variants of K2",
+             csrc + "bisect_bwd_sm90.cu", "tools/bisect_bwd.py:199"),
             ("T3", "T3 micro_reduce lane reductions",
              csrc + "micro_reduce_sm90.cuh", "tools/micro_reduce.py:70"),
             ("T4", "T4 micro_prefix prefix sums", csrc + "micro_prefix.cu",

@@ -1,9 +1,12 @@
 // K2 — 2DGS blend backward, redesigned for the H100: the production
-// kernel template on (nq, G), instantiated by blend_bwd.cu (no gated
-// chains, and the C interface) and blend_bwd_gated.cu (G gated chains at
-// nq 6 and 12). The first design, blend_bwd.cuh, stays as the template of
-// the bisection variants (bisect_bwd*.cu); its `kBwdFull` is this
-// kernel's reference, and the two agree bit for bit.
+// kernel template on (nq, G, measurement variant), instantiated at its
+// default variant kBwdFull by blend_bwd.cu (no gated chains, and the C
+// interface) and blend_bwd_gated.cu (G gated chains at nq 6 and 12), and
+// at every variant by bisect_bwd_sm90.cu and bisect_bwd_sm90_g5.cu (the
+// bisection tool streetunveiler_torch/tools/bisect_bwd.py). The first
+// design, blend_bwd.cuh, stays selectable in that tool (its own
+// variants, bisect_bwd*.cu); its `kBwdFull` and this kernel agree bit for
+// bit.
 //
 // Replaces the Pallas kernel streetunveiler_tpu/ops/rasterizer/kernel.py
 // `_bwd_kernel` (launched at kernel.py:725, the custom VJP of
@@ -56,6 +59,29 @@
 // - 64 duplicates a batch, where the first design staged 32: half the
 //   barriers and partial-sum passes (the partials of each duplicate are
 //   still added in the same order).
+//
+// Measurement variants (VAR), those of the first design (blend_bwd.cuh)
+// restated against this one. Each branch is an `if constexpr`, so kBwdFull
+// compiles to the production kernel; each feeds dgrad, so that nvcc keeps
+// what it computes; each applies its stand-in to exactly the pairs this
+// design evaluates (its exact pair skip). "Stream chunk": the 128 slots
+// [128c, 128c + 128) of one tile (the TPU tool's visit).
+//   kBwdFull   the production kernel.
+//   kBwdFloor  the cp.async double-buffered staging and the walk: per pair
+//              the pixel evaluates, fl += opacity * U, U *= 0.999 (U from
+//              1); after each batch of kB, thread p < nb stores 1e-30 fl
+//              into rows 0..9+nq of the batch's slot p.
+//   kNoVjp     the pair VJP replaced by values 1e-30 da (even) and 1e-30
+//              dt (odd) of the 14, still reduce-scattered; the chain
+//              through the cross products and the payload gradients stay.
+//   kNoDq      no payload gradients gq w: V = 14 values a duplicate, the
+//              payload rows zero.
+//   kNoGqqc    Omega's gq.q replaced by 1e-6 w.
+//   kNoSuffmm  no suffix updates: T_excl = U frozen within a stream chunk,
+//              S_pair = S + 1e-6 w Omega; at the chunk's end U *= 0.999 and
+//              S += the chunk's sum of w Omega (every chain).
+//   kBwdNoExp  the division rebuild T = U / (1 - a) replaced by the
+//              multiply T = U (1 + a) (every chain).
 
 #pragma once
 
@@ -81,6 +107,18 @@ constexpr int kMaxQ = 16;        // payload channels a launch may carry
 constexpr int kMaxGates = 6;     // gated chains a launch may carry
 constexpr int kMaxStream = 1 << 24;   // lk_g is exact below 2^24
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kChunkShift = 7;   // stream chunk of the TPU tool: 128 slots
+
+enum BwdVariant {
+  kBwdFull = 0,
+  kBwdFloor,
+  kNoVjp,
+  kNoDq,
+  kNoGqqc,
+  kNoSuffmm,
+  kBwdNoExp,
+  kNumBwdVariants
+};
 
 // indices of the summed geometry values (as blend_bwd.cuh)
 constexpr int kDA = 0;           // dA (3): d k, summed
@@ -94,11 +132,12 @@ constexpr int kDOp = 13;         // opacity
 
 // Shared memory, in floats: two buffers of raw record rows, the hoisted
 // geometry, the warp partials, their sums, and the gated cotangents.
-template <int NQ, int G>
+template <int NQ, int G, int VAR = kBwdFull>
 struct Layout {
   static constexpr int kRaw = kQRow0 + NQ + (G > 0 ? 1 : 0);  // rows staged
   static constexpr int kGateRaw = kQRow0 + NQ;   // the gate mask's row
-  static constexpr int kV = kNv + NQ;            // values summed per slot
+  // values summed per slot
+  static constexpr int kV = kNv + (VAR == kNoDq ? 0 : NQ);
   static constexpr int kGeoOff = 2 * kRaw * kB;
   static constexpr int kPartOff = kGeoOff + kGeo * kB;
   static constexpr int kRedOff = kPartOff + kWarps * kB * kV;
@@ -140,8 +179,8 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[32], int lane) {
   return v[0];
 }
 
-template <int NQ, int G>
-__global__ void __launch_bounds__(kPix, Layout<NQ, G>::kMinBlocks)
+template <int NQ, int G, int VAR = kBwdFull>
+__global__ void __launch_bounds__(kPix, Layout<NQ, G, VAR>::kMinBlocks)
 blend_bwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
                       const int32_t* __restrict__ tile_offsets,
                       const int32_t* __restrict__ tile_order, int tiles_x,
@@ -149,7 +188,7 @@ blend_bwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
                       const int32_t* __restrict__ lk,
                       const float* __restrict__ dacc,
                       float* __restrict__ dgrad) {
-  using L = Layout<NQ, G>;
+  using L = Layout<NQ, G, VAR>;
   constexpr int V = L::kV;
   constexpr int CH = NQ + 6 + 4 * G;
   constexpr int GA = G > 0 ? G : 1;
@@ -210,8 +249,17 @@ blend_bwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
   }
   const float dscale = zfar / (zfar - znear);
   const float dmdt_num = zfar * znear / (zfar - znear);
-  float U = 1.0f - accp[NQ];             // transmittance after the pair
+  // transmittance after the pair
+  float U = VAR == kBwdFloor ? 1.0f : 1.0f - accp[NQ];
   float S = 0.0f;                        // sum of w * Omega behind it
+  // variants: the floor's sum; kNoSuffmm's stream chunk and the sums of
+  // w * Omega it has pending, per chain
+  float fl = 0.0f;
+  int chunk = -1;
+  float s_pend = 0.0f;
+  float sg_pend[GA];
+#pragma unroll
+  for (int g = 0; g < GA; ++g) sg_pend[g] = 0.0f;
 
   // thread p < n starts the copies of slot base + p's record rows into buf
   const size_t ld = (size_t)cap;
@@ -245,12 +293,52 @@ blend_bwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
     if (p < nb) su_pair::stage_geometry(cur + p, kB, geo, kB, p);
     __syncthreads();
 
+    if constexpr (VAR == kBwdFloor) {
+      for (int j = nb - 1; j >= 0; --j) {
+        const int idx = base + j;
+        bool need = idx <= my_lk;
+        if (G > 0) {
+          const int bits = (int)cur[L::kGateRaw * kB + j];
+#pragma unroll
+          for (int g = 0; g < GA; ++g)
+            need = need || (((bits >> g) & 1) && idx <= lkg[g]);
+        }
+        if (need) {
+          fl += geo[13 * kB + j] * U;
+          U *= 0.999f;
+        }
+      }
+      if (p < nb) {
+        float* o = dgrad + base + p;
+        for (int k = 0; k < kQRow0 + NQ; ++k) o[(size_t)k * ld] = 1e-30f * fl;
+      }
+      continue;
+    }
+
     for (int j = nb - 1; j >= 0; --j) {
       float v[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) v[i] = 0.0f;
       bool keep = false;
       const int idx = base + j;
+      if constexpr (VAR == kNoSuffmm) {
+        const int c = idx >> kChunkShift;
+        if (c != chunk) {
+          if (chunk >= 0) {
+            U *= 0.999f;
+            S += s_pend;
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              ug[g] *= 0.999f;
+              sg[g] += sg_pend[g];
+            }
+          }
+          chunk = c;
+          s_pend = 0.0f;
+#pragma unroll
+          for (int g = 0; g < GA; ++g) sg_pend[g] = 0.0f;
+        }
+      }
       bool need = idx <= my_lk;
       int bits = 0;
       if (G > 0) {
@@ -270,20 +358,30 @@ blend_bwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
           float da = 0.0f, dt = 0.0f;
           if (idx <= my_lk) {
             keep = true;
-            const float T = U / one_m;
-            U = T;
+            const float T = VAR == kNoSuffmm   ? U
+                            : VAR == kBwdNoExp ? U * (1.0f + a)
+                                               : U / one_m;
+            if constexpr (VAR != kNoSuffmm) U = T;
             const float w = a * T;
             float gqq = 0.0f;
 #pragma unroll
             for (int k = 0; k < NQ; ++k) {
-              const float q = cur[(kQRow0 + k) * kB + j];
-              gqq += gq[k] * q;
-              v[kNv + k] = gq[k] * w;
+              if constexpr (VAR != kNoGqqc) {
+                const float q = cur[(kQRow0 + k) * kB + j];
+                gqq += gq[k] * q;
+              }
+              if constexpr (VAR != kNoDq) v[kNv + k] = gq[k] * w;
             }
+            if constexpr (VAR == kNoGqqc) gqq = w * 1e-6f;
             const float omega =
                 gqq + g_alpha + g_depth * t + g_m1 * m + g_m2 * m * m;
-            da = T * omega - S / one_m;
-            S += w * omega;
+            if constexpr (VAR == kNoSuffmm) {
+              da = T * omega - (S + w * omega * 1e-6f) / one_m;
+              s_pend += w * omega;
+            } else {
+              da = T * omega - S / one_m;
+              S += w * omega;
+            }
             dt = w * (g_depth + (g_m1 + 2.0f * m * g_m2) * dmdt);
           }
           if (G > 0) {
@@ -294,18 +392,31 @@ blend_bwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
                 const float ga = cot[(3 * g) * kPix + p];
                 const float gm1 = cot[(3 * g + 1) * kPix + p];
                 const float gm2 = cot[(3 * g + 2) * kPix + p];
-                const float T = ug[g] / one_m;
-                ug[g] = T;
+                const float T = VAR == kNoSuffmm   ? ug[g]
+                                : VAR == kBwdNoExp ? ug[g] * (1.0f + a)
+                                                   : ug[g] / one_m;
+                if constexpr (VAR != kNoSuffmm) ug[g] = T;
                 const float w = a * T;
                 const float omega = ga + gm1 * m + gm2 * m * m;
-                da = da + (T * omega - sg[g] / one_m);
-                sg[g] += w * omega;
+                if constexpr (VAR == kNoSuffmm) {
+                  da = da + (T * omega - (sg[g] + w * omega * 1e-6f) / one_m);
+                  sg_pend[g] += w * omega;
+                } else {
+                  da = da + (T * omega - sg[g] / one_m);
+                  sg[g] += w * omega;
+                }
                 dt = dt + w * (gm1 + 2.0f * m * gm2) * dmdt;
               }
             }
           }
 
-          if (keep) {
+          if constexpr (VAR == kNoVjp) {
+            if (keep) {
+#pragma unroll
+              for (int i = 0; i < kNv; ++i)
+                v[i] = 1e-30f * ((i & 1) ? dt : da);
+            }
+          } else if (keep) {
             // VJP of the pair function
             const float opac = geo[13 * kB + j];
             const float dar = e.araw <= su_pair::kAlphaMax ? da : 0.0f;
@@ -405,8 +516,11 @@ blend_bwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
       o[7 * ld] = s[kDCy] + d2z * z;
       o[8 * ld] = s[kDZ] + d1z * c2dx + d2z * c2dy + d3z;
       o[9 * ld] = s[kDOp];
+      if constexpr (VAR != kNoDq) {
 #pragma unroll
-      for (int k = 0; k < NQ; ++k) o[(size_t)(kQRow0 + k) * ld] = s[kNv + k];
+        for (int k = 0; k < NQ; ++k)
+          o[(size_t)(kQRow0 + k) * ld] = s[kNv + k];
+      }
     }
   }
   su_async::wait<0>();
@@ -414,21 +528,21 @@ blend_bwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
 
 // Launch on the current stream or, with `blocks_per_sm`, only report the
 // blocks of this instantiation an SM holds at once.
-template <int NQ, int G>
+template <int NQ, int G, int VAR = kBwdFull>
 cudaError_t launch(const float* recT, int cap, int gate_row,
                    const int32_t* tile_offsets, const int32_t* tile_order,
                    int n_tiles, int tiles_x, float znear, float zfar,
                    const float* acc, const int32_t* lk, const float* dacc,
                    float* dgrad, cudaStream_t stream, int* blocks_per_sm) {
-  const size_t smem = sizeof(float) * (size_t)Layout<NQ, G>::kFloats;
+  const size_t smem = sizeof(float) * (size_t)Layout<NQ, G, VAR>::kFloats;
   cudaError_t err = cudaFuncSetAttribute(
-      blend_bwd_sm90_kernel<NQ, G>,
+      blend_bwd_sm90_kernel<NQ, G, VAR>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (blocks_per_sm)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, blend_bwd_sm90_kernel<NQ, G>, kPix, smem);
-  blend_bwd_sm90_kernel<NQ, G><<<n_tiles, kPix, smem, stream>>>(
+        blocks_per_sm, blend_bwd_sm90_kernel<NQ, G, VAR>, kPix, smem);
+  blend_bwd_sm90_kernel<NQ, G, VAR><<<n_tiles, kPix, smem, stream>>>(
       recT, cap, gate_row, tile_offsets, tile_order, tiles_x, znear, zfar,
       acc, lk, dacc, dgrad);
   return cudaGetLastError();
@@ -456,6 +570,21 @@ cudaError_t launch_nq(int nq, SU_BWD90_PARAMS) {
     SU_BWD_CASE(13) SU_BWD_CASE(14) SU_BWD_CASE(15) SU_BWD_CASE(16)
   }
 #undef SU_BWD_CASE
+  return cudaErrorInvalidValue;
+}
+
+// launch<NQ, G, VAR> for a variant given at run time
+template <int NQ, int G>
+cudaError_t launch_variant(int variant, SU_BWD90_PARAMS) {
+#define SU_BISECT_CASE(VAR) \
+  case VAR:                 \
+    return launch<NQ, G, VAR>(SU_BWD90_ARGS);
+  switch (variant) {
+    SU_BISECT_CASE(kBwdFull) SU_BISECT_CASE(kBwdFloor) SU_BISECT_CASE(kNoVjp)
+    SU_BISECT_CASE(kNoDq) SU_BISECT_CASE(kNoGqqc) SU_BISECT_CASE(kNoSuffmm)
+    SU_BISECT_CASE(kBwdNoExp)
+  }
+#undef SU_BISECT_CASE
   return cudaErrorInvalidValue;
 }
 

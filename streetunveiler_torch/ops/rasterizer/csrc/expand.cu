@@ -1,5 +1,8 @@
 // K3 — duplicate expansion of the depth-ranked surfel table into the
-// (tile id, surfel id) stream that the stable sort by tile then groups.
+// (tile id, surfel id) stream that the stable sort by tile then groups:
+// the C entries of the production kernel (su_expand, expand_sm90.cuh, the
+// H100 redesign) and of its first design (su_expand_first, this file's
+// kernel), which stays selectable and gives the same bits.
 //
 // Replaces the Pallas kernel streetunveiler_tpu/ops/rasterizer/tiles.py
 // `_expand_kernel` (launched by `_expand_stream`, tiles.py:205-234, from
@@ -16,17 +19,20 @@
 // at 3.35 TB/s; a nibble pick and one integer divide per slot are nothing
 // beside that.
 //
-// Design: one thread per depth-ranked surfel writes its own run of slots
-// starting at its dup_start (the 2DGS CUDA `duplicateWithKeys` pattern),
-// so the marks + cumsum + per-slot row gather the TPU needed
-// (tiles.py:348-356) do not exist here. The sentinel tail is filled by
-// the same launch with a grid-stride loop. Integer / and % replace the
-// TPU's f32-divide-plus-fixup divmod (same result). Simple first: runs
-// are short (<= 16 slots for small surfels, <= max_tiles_per_surfel for
-// the rest) and the stores of one thread are contiguous.
+// The first design, below: one thread per depth-ranked surfel writes its
+// own run of slots starting at its dup_start (the 2DGS CUDA
+// `duplicateWithKeys` pattern), so the marks + cumsum + per-slot row
+// gather the TPU needed (tiles.py:348-356) do not exist here. The
+// sentinel tail is filled by the same launch with a grid-stride loop.
+// Integer / and % replace the TPU's f32-divide-plus-fixup divmod (same
+// result). Runs are short (<= 16 slots for small surfels, <=
+// max_tiles_per_surfel for the rest) and the stores of one thread are
+// contiguous; a warp's stores are not (expand_sm90.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "expand_sm90.cuh"
 
 namespace {
 
@@ -79,6 +85,21 @@ extern "C" int su_expand(const int32_t* tbl, int rows,
                          int tiles_x, int sentinel, int has_cull,
                          int32_t* tile_id, int32_t* surf_id, int device,
                          void* stream) {
+  if (n < 1 || rows < (has_cull ? 8 : 5) || cap > capp)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)su_expand90::launch(tbl, rows, dup_start, n, cap, capp,
+                                  tiles_x, sentinel, has_cull != 0, tile_id,
+                                  surf_id, device, (cudaStream_t)stream);
+}
+
+// As su_expand, with the first design's kernel.
+extern "C" int su_expand_first(const int32_t* tbl, int rows,
+                               const int32_t* dup_start, int n, int cap,
+                               int capp, int tiles_x, int sentinel,
+                               int has_cull, int32_t* tile_id,
+                               int32_t* surf_id, int device, void* stream) {
   if (n < 1 || rows < (has_cull ? 8 : 5) || cap > capp)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);

@@ -147,9 +147,12 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build_library())
             vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.su_expand.argtypes = [vp, i32, vp, i32, i32, i32, i32, i32,
-                                      i32, vp, vp, i32, vp]
-            lib.su_expand.restype = i32
+            # K3: the redesign (su_expand) and the first design
+            for name in ("su_expand", "su_expand_first"):
+                getattr(lib, name).argtypes = [vp, i32, vp, i32, i32, i32,
+                                               i32, i32, i32, vp, vp, i32,
+                                               vp]
+                getattr(lib, name).restype = i32
             # K1/K2 take tile_order after tile_offsets; their bisection
             # variants (the first design) do not
             fwd = [vp, i32, i32, i32, i32, i32, vp, i32, i32, f32, f32, f32,
@@ -164,6 +167,9 @@ def load_library() -> ctypes.CDLL:
             lib.su_bisect_fwd.restype = i32
             lib.su_bisect_bwd.argtypes = [i32] + bwd
             lib.su_bisect_bwd.restype = i32
+            # T2 on K2's H100 design takes the tile order as K2 does
+            lib.su_bisect_bwd_sm90.argtypes = [i32] + bwd[:7] + [vp] + bwd[7:]
+            lib.su_bisect_bwd_sm90.restype = i32
             for name in ("su_blend_fwd_occupancy", "su_blend_bwd_occupancy",
                          "su_bisect_fwd_occupancy",
                          "su_bisect_bwd_occupancy"):

@@ -8,7 +8,8 @@ stream with per-tile CSR offsets (counterpart of
    rect positions are packed as 4-bit nibbles into two words.
 2. A stable depth argsort, one gather of the per-surfel table into depth
    rank, a cumsum of the per-surfel tile counts (``dup_start``).
-3. The duplicate expansion — kernel K3 (``csrc/expand.cu``) on the card,
+3. The duplicate expansion — kernel K3 (``csrc/expand_sm90.cuh``, blocks
+   of consecutive surfels storing their slots coalesced) on the card,
    ``expand_duplicates_plain`` on the CPU — then a stable sort by tile
    (depth order within each tile is preserved) and ``searchsorted`` for
    the CSR offsets. On overflow the farthest surfels' duplicates drop.
@@ -156,9 +157,17 @@ def expand_duplicates_plain(tbl, dup_start, cap: int, tiles_x: int,
     return expand_rows_plain(g, total_capped, tiles_x, n, sentinel, has_cull)
 
 
+DESIGNS = ("sm90", "first")   # K3's redesign and its first design
+
+
 def expand_duplicates_cuda(tbl, dup_start, cap: int, tiles_x: int,
-                           sentinel: int, has_cull: bool):
-    """Launch kernel K3 (``csrc/expand.cu``) on the current stream."""
+                           sentinel: int, has_cull: bool,
+                           design: str = "sm90"):
+    """Launch kernel K3 on the current stream: its H100 design
+    (``csrc/expand_sm90.cuh``, the default) or ``design="first"``, its
+    first design (``csrc/expand.cu``); both give the same bits."""
+    if design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}; one of {DESIGNS}")
     dev = tbl.device
     n, rows = tbl.shape
     if dev.type != "cuda" or dup_start.device != dev:
@@ -177,12 +186,12 @@ def expand_duplicates_cuda(tbl, dup_start, cap: int, tiles_x: int,
     tile_id = torch.empty(capp, dtype=torch.int32, device=dev)
     surf_id = torch.empty(capp, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.su_expand(tbl.data_ptr(), rows, dup_start.data_ptr(), n, cap,
-                       capp, tiles_x, sentinel, int(has_cull),
-                       tile_id.data_ptr(), surf_id.data_ptr(),
-                       dev.index if dev.index is not None
-                       else torch.cuda.current_device(), stream)
-    cuda_lib.check(rc, "expand launch")
+    entry = lib.su_expand if design == "sm90" else lib.su_expand_first
+    rc = entry(tbl.data_ptr(), rows, dup_start.data_ptr(), n, cap, capp,
+               tiles_x, sentinel, int(has_cull), tile_id.data_ptr(),
+               surf_id.data_ptr(), dev.index if dev.index is not None
+               else torch.cuda.current_device(), stream)
+    cuda_lib.check(rc, f"expand ({design}) launch")
     cuda_lib.launch_counts["expand"] += 1
     return tile_id, surf_id
 
@@ -200,66 +209,94 @@ def expand_duplicates(tbl, dup_start, cap: int, tiles_x: int, sentinel: int,
                                   has_cull)
 
 
-def ranked_table(center2d, ext, depth, valid, width: int, height: int,
-                 tile_w: int, tile_h: int, max_tiles_per_surfel: int = 256,
-                 cull=None):
-    """The depth-ranked per-surfel table the duplicate expansion reads:
-    tbl [N, 5(+3)] int32 rows (x0, y0, nx, dup_start, surfel id[, small,
-    w0, w1]) and dup_start [N+1] int32, the cumsum of the per-surfel tile
-    counts (dup_start[N] is the uncapped duplicate total)."""
+def tile_rects(center2d, ext, valid, width: int, height: int, tile_w: int,
+               tile_h: int, max_tiles_per_surfel: int = 256):
+    """Per-surfel tile rectangles: (x0, y0, nx, rect_nt, nt) int32, nt the
+    rectangle's tile count capped at ``max_tiles_per_surfel`` (0 where
+    invalid)."""
     tiles_x = -(-width // tile_w)
     tiles_y = -(-height // tile_h)
-    n = center2d.shape[0]
-    dev = center2d.device
-    i32 = torch.int32
-
     cx, cy = center2d[:, 0], center2d[:, 1]
     ex, ey = ext[:, 0], ext[:, 1]
     cell = lambda v, size, hi: torch.clamp(torch.floor(v / size), 0,
-                                           hi - 1).to(i32)
+                                           hi - 1).to(torch.int32)
     x0 = cell(cx - ex, tile_w, tiles_x)
     x1 = cell(cx + ex, tile_w, tiles_x)
     y0 = cell(cy - ey, tile_h, tiles_y)
     y1 = cell(cy + ey, tile_h, tiles_y)
     nx = x1 - x0 + 1
     rect_nt = nx * (y1 - y0 + 1)
-    zero_i = torch.zeros_like(rect_nt)
     nt = torch.where(valid, torch.clamp(rect_nt, max=max_tiles_per_surfel),
-                     zero_i)
+                     torch.zeros_like(rect_nt))
+    return x0, y0, nx, rect_nt, nt
 
-    cull_cols = []
-    if cull is not None:
-        coefs = torch.cat([cull, center2d], dim=1)
-        coefs_k = tuple(coefs[:, i:i + 1] for i in range(13))
-        ks = torch.arange(CULL_KMAX, dtype=i32, device=dev)[None, :]
-        kyk, kxk = _divmod_small(ks.expand(n, CULL_KMAX),
-                                 torch.clamp(nx, min=1)[:, None])
-        passk = ((ks < rect_nt[:, None])
-                 & _tile_can_contribute(coefs_k, x0[:, None] + kxk,
-                                        y0[:, None] + kyk, tile_w, tile_h))
-        small = (rect_nt <= CULL_KMAX) & valid
-        exact_nt = passk.sum(dim=1).to(i32)
-        nt = torch.where(small,
-                         torch.clamp(exact_nt, max=max_tiles_per_surfel), nt)
-        # compact list: passing tiles first, rect order preserved
-        keys = torch.where(passk, ks, CULL_KMAX + ks)
-        pos = torch.sort(keys, dim=1, stable=True).values % CULL_KMAX
-        cull_cols = [small[:, None].to(i32), _pack_nibbles(pos[:, :8])[:, None],
-                     _pack_nibbles(pos[:, 8:])[:, None]]
 
-    # depth-rank order: one stable argsort, one gather of the table
+def conic_cull(cull, center2d, rects, valid, tile_w: int, tile_h: int,
+               max_tiles_per_surfel: int = 256):
+    """The exact conic tile test of the surfels spanning at most CULL_KMAX
+    tiles: (nt, [small, w0, w1] columns), nt their passing tile count
+    (capped), the passing rect positions packed as nibbles."""
+    x0, y0, nx, rect_nt, nt = rects
+    n = center2d.shape[0]
+    i32 = torch.int32
+    coefs = torch.cat([cull, center2d], dim=1)
+    coefs_k = tuple(coefs[:, i:i + 1] for i in range(13))
+    ks = torch.arange(CULL_KMAX, dtype=i32, device=center2d.device)[None, :]
+    kyk, kxk = _divmod_small(ks.expand(n, CULL_KMAX),
+                             torch.clamp(nx, min=1)[:, None])
+    passk = ((ks < rect_nt[:, None])
+             & _tile_can_contribute(coefs_k, x0[:, None] + kxk,
+                                    y0[:, None] + kyk, tile_w, tile_h))
+    small = (rect_nt <= CULL_KMAX) & valid
+    exact_nt = passk.sum(dim=1).to(i32)
+    nt = torch.where(small,
+                     torch.clamp(exact_nt, max=max_tiles_per_surfel), nt)
+    # compact list: passing tiles first, rect order preserved
+    keys = torch.where(passk, ks, CULL_KMAX + ks)
+    pos = torch.sort(keys, dim=1, stable=True).values % CULL_KMAX
+    return nt, [small[:, None].to(i32), _pack_nibbles(pos[:, :8])[:, None],
+                _pack_nibbles(pos[:, 8:])[:, None]]
+
+
+def depth_order(depth, valid):
+    """The depth rank: one stable argsort, invalid surfels last. [N]
+    int32."""
     key = torch.where(valid, depth, torch.full_like(depth, float("inf")))
-    order = torch.argsort(key, stable=True).to(i32)
+    return torch.argsort(key, stable=True).to(torch.int32)
+
+
+def rank_table(rects, nt, cull_cols, order):
+    """One gather of the per-surfel table into depth rank and the cumsum of
+    its tile counts: (tbl, dup_start) as ``ranked_table`` returns them."""
+    x0, y0, nx = rects[:3]
+    i32 = torch.int32
     tbl_orig = torch.cat([x0[:, None], y0[:, None],
                           torch.clamp(nx, min=1)[:, None], nt[:, None]]
                          + cull_cols, dim=1)
     tbl_s = tbl_orig[order.long()]
-    dup_start = torch.cat([torch.zeros(1, dtype=i32, device=dev),
+    dup_start = torch.cat([torch.zeros(1, dtype=i32, device=order.device),
                            torch.cumsum(tbl_s[:, 3], 0).to(i32)])
     tbl = torch.cat([tbl_s[:, 0:3], dup_start[:-1, None], order[:, None]]
-                    + ([tbl_s[:, 4:7]] if cull is not None else []),
+                    + ([tbl_s[:, 4:7]] if cull_cols else []),
                     dim=1).contiguous()
     return tbl, dup_start
+
+
+def ranked_table(center2d, ext, depth, valid, width: int, height: int,
+                 tile_w: int, tile_h: int, max_tiles_per_surfel: int = 256,
+                 cull=None):
+    """The depth-ranked per-surfel table the duplicate expansion reads:
+    tbl [N, 5(+3)] int32 rows (x0, y0, nx, dup_start, surfel id[, small,
+    w0, w1]) and dup_start [N+1] int32, the cumsum of the per-surfel tile
+    counts (dup_start[N] is the uncapped duplicate total). The stages
+    ``tile_rects``, ``conic_cull``, ``depth_order``, ``rank_table``."""
+    rects = tile_rects(center2d, ext, valid, width, height, tile_w, tile_h,
+                       max_tiles_per_surfel)
+    nt, cull_cols = rects[4], []
+    if cull is not None:
+        nt, cull_cols = conic_cull(cull, center2d, rects, valid, tile_w,
+                                   tile_h, max_tiles_per_surfel)
+    return rank_table(rects, nt, cull_cols, depth_order(depth, valid))
 
 
 def tile_order(tile_offsets):
@@ -271,6 +308,21 @@ def tile_order(tile_offsets):
     lengths = tile_offsets[1:] - tile_offsets[:-1]
     return torch.sort(lengths, descending=True, stable=True).indices.to(
         torch.int32)
+
+
+def sort_by_tile(tile_id, surf_id):
+    """The stream grouped by tile: a stable single-key sort, so depth order
+    within each tile is preserved. (sorted tile ids, surfel per slot)."""
+    s_tile, perm = torch.sort(tile_id, stable=True)
+    return s_tile, surf_id[perm]
+
+
+def csr_offsets(s_tile, n_tiles: int):
+    """Per-tile CSR offsets [n_tiles + 1] int32 of the sorted tile ids."""
+    return torch.searchsorted(
+        s_tile, torch.arange(n_tiles + 1, dtype=torch.int32,
+                             device=s_tile.device),
+        side="left").to(torch.int32)
 
 
 def bin_surfels_stream(center2d, ext, depth, valid, width: int, height: int,
@@ -298,13 +350,8 @@ def bin_surfels_stream(center2d, ext, depth, valid, width: int, height: int,
     tile_id = tile_id[:cap]
     surf_id = surf_id[:cap]
 
-    # stable single-key sort: depth order within each tile is preserved
-    s_tile, perm = torch.sort(tile_id, stable=True)
-    s_surf = surf_id[perm]
-    off = torch.searchsorted(
-        s_tile, torch.arange(n_tiles + 1, dtype=torch.int32,
-                             device=tile_id.device),
-        side="left").to(torch.int32)
+    s_tile, s_surf = sort_by_tile(tile_id, surf_id)
+    off = csr_offsets(s_tile, n_tiles)
     return StreamBinning(sorted_surfel=s_surf, tile_offsets=off,
                          overflow=total > cap, demand=total,
                          tiles_x=tiles_x, tiles_y=tiles_y,

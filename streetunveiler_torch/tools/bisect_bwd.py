@@ -1,12 +1,20 @@
 """Bisect the blend backward's time on the real binned stream (T2).
 
 Counterpart of ``tools/bisect_bwd.py`` (its Pallas kernel, ``make_kernel``
-:36, is launched at :199): variants of kernel K2 (``csrc/blend_bwd.cuh``,
-instantiated by ``csrc/bisect_bwd.cu`` at (nq, G) = (6, 0) and
-``csrc/bisect_bwd_g5.cu`` at (12, 5); ``full`` also at (12, 0)) that
-differ only in the body, timed
-on the same records, forward residuals and cotangents, so that the
-differences from ``full`` show where the kernel's time goes.
+:36, is launched at :199): variants of kernel K2 that differ only in the
+body, timed on the same records, forward residuals and cotangents, so
+that the differences from ``full`` show where the kernel's time goes. Two
+designs of K2 carry them (``DESIGNS``):
+
+* ``sm90`` (the default): the production K2, ``csrc/blend_bwd_sm90.cuh``,
+  instantiated on each variant by ``csrc/bisect_bwd_sm90.cu`` at
+  (nq, G) = (6, 0) and ``csrc/bisect_bwd_sm90_g5.cu`` at (12, 5);
+  ``full`` also at (12, 0), and ``full`` is the production kernel. It
+  stages batches of 64 duplicates and evaluates a pair only where a chain
+  still keeps it (index ≤ lk, or gate bit g set and index ≤ lk_g);
+* ``first``: K2's first design, ``csrc/blend_bwd.cuh``
+  (``csrc/bisect_bwd.cu``, ``bisect_bwd_g5.cu``, the same (nq, G)):
+  batches of 32, every pair up to the pixel's deepest lk or lk_g.
 
 Variants, each named after its TPU counterpart, and what it swaps out of
 the CUDA K2 ("stream chunk": the TPU tool's visit, the 128 slots
@@ -14,8 +22,10 @@ the CUDA K2 ("stream chunk": the TPU tool's visit, the 128 slots
 
 * ``full``: the production kernel.
 * ``floor``: the staging and the walk from the tile's deepest lk down; per
-  pair fl += opacity·U, U *= 0.999 (U from 1); each duplicate's rows
-  0..9+nq get 1e-30·fl as it stands after the duplicate's batch of 32.
+  pair the pixel evaluates, fl += opacity·U, U *= 0.999 (U from 1); after
+  each batch, slot p of the batch gets 1e-30·fl of pixel p in rows
+  0..9+nq (the first design evaluates every pair of the walk, so its
+  pixels' fl are all alike).
 * ``no_vjp``: the per-pair VJP replaced by summed values 1e-30·dα (even
   indices) and 1e-30·dt (odd) of the 14; the chain through the cross
   products and the payload gradients stay.
@@ -28,10 +38,15 @@ the CUDA K2 ("stream chunk": the TPU tool's visit, the 128 slots
   T = U·(1+α) (every chain): the TPU's ``no_exp`` linearised the exp of its
   log-space suffix, whose counterpart here is that division.
 
+The stand-ins act on kept pairs only, so the two designs' exact pair
+skip changes only ``floor`` and the pairs each evaluates; the plain
+versions take the design's ``batch`` and ``skip_rule``.
+
 ``bisect_backward`` runs a variant's plain PyTorch version on a CPU tensor
 and its kernel on a CUDA tensor (raising if it cannot launch). Run on the
 card: ``python -m streetunveiler_torch.tools.bisect_bwd [variant ...]
-[--gates 5] [--device cuda]`` bins the 300k-surfel street at 1920x1280,
+[--gates 5] [--design first] [--device cuda]`` bins the 300k-surfel
+street at 1920x1280,
 runs the production forward for acc and lk, draws cotangents from a
 numpy seed and prints each variant's median ms (CUDA events, dgrad
 zeroed once outside the timed launches) and its difference from
@@ -58,7 +73,12 @@ BUILT = ((6, 0), (12, 5))                   # (nq, G) the variants are built at
 FULL_BUILT = BUILT + ((12, 0),)             # and `full` alone (the semantic
 #                                             step's first design of K2)
 CHUNK = 128                                 # the TPU tool's visit
-BATCH = 32                                  # K2's duplicates per staged batch
+# each design's duplicates per staged batch and whether it skips the pairs
+# no chain keeps (its exact pair skip)
+DESIGNS = {"sm90": dict(batch=64, skip_rule=True),
+           "first": dict(batch=32, skip_rule=False)}
+BATCH = DESIGNS["first"]["batch"]
+SKIP_SLOTS = 1 << 16    # walked slots a skip-rule pair count takes at once
 DECAY = 0.999
 STANDIN = 1e-30
 
@@ -130,44 +150,93 @@ def _tops(off, lk, acc, nq, n_gates):
     return top, torch.minimum(off[1:], top.amax(dim=1) + 1)
 
 
+def _walk(off, top_all):
+    """The tiles' walks from their tops down, flat: (tile, walk index k,
+    slot, flat index of each tile's k = 0, walk lengths)."""
+    dev = off.device
+    n_walk = (top_all - off[:-1]).clamp(min=0)
+    tile = torch.repeat_interleave(torch.arange(off.numel() - 1, device=dev),
+                                   n_walk)
+    first = torch.cumsum(n_walk, 0) - n_walk        # flat index of k = 0
+    k = torch.arange(tile.numel(), device=dev) - first[tile]
+    return tile, k, top_all[tile] - 1 - k, first, n_walk
+
+
+def _needed(recT, slot, tile, lk, acc, nq, n_gates, pixels):
+    """Per walked slot and pixel of ``pixels``, whether the pixel
+    evaluates the pair under the exact pair skip: slot ≤ lk, or the
+    slot's gate bit g set and slot ≤ lk_g for some g. [E, len(pixels)]."""
+    ch = kernel.ch_for(nq)
+    s = slot[:, None]
+    need = s <= lk[:, pixels, 0][tile].to(torch.int64)
+    if n_gates:
+        bits = kernel.gate_bits(recT[kernel.Q_ROW0 + nq, slot], n_gates)
+        for g in range(n_gates):
+            lkg = acc[:, pixels, ch + 4 * g + 3][tile].to(torch.int64)
+            need = need | (bits[g][:, None] & (s <= lkg))
+    return need
+
+
 def evaluated_pairs(variant, tile_offsets, acc, lk, nq: int = kernel.NQ,
-                    n_gates: int = 0) -> int:
-    """The (duplicate, pixel) pairs a variant evaluates: per pixel its
-    tile's duplicates up to its deepest lk or lk_g; ``floor`` walks every
-    pixel from the tile's deepest one down."""
+                    n_gates: int = 0, recT=None,
+                    skip_rule: bool = False) -> int:
+    """The (duplicate, pixel) pairs a variant evaluates. Without the skip
+    rule (the first design): per pixel its tile's duplicates up to its
+    deepest lk or lk_g, and ``floor`` walks every pixel from the tile's
+    deepest one down. With it (``recT`` given for the gate row): the
+    pairs some chain still keeps, for every variant; counted SKIP_SLOTS
+    walked slots at a time."""
     off = tile_offsets.to(torch.int64)
     top, top_all = _tops(off, lk, acc, nq, n_gates)
+    if skip_rule:
+        tile, _, slot, _, _ = _walk(off, top_all)
+        pixels = torch.arange(kernel.PIX, device=off.device)
+        return sum(int(_needed(recT, slot[i:i + SKIP_SLOTS],
+                               tile[i:i + SKIP_SLOTS], lk, acc, nq,
+                               n_gates, pixels).sum())
+                   for i in range(0, slot.numel(), SKIP_SLOTS))
     if variant == "floor":
         return int((top_all - off[:-1]).clamp(min=0).sum()) * kernel.PIX
     return int(torch.where(top >= 0, top - off[:-1, None] + 1,
                            torch.zeros_like(top)).sum())
 
 
-def _floor_plain(recT, off, top_all, nq):
-    """The floor: the walk from each tile's top down, fl = Σ opacity·0.999^k
-    in walk order, written per batch of BATCH duplicates."""
+def _floor_plain(recT, off, top_all, nq, batch, skip_rule, lk, acc,
+                 n_gates):
+    """The floor: the walk from each tile's top down, fl = Σ opacity·U in
+    walk order over the pairs the pixel evaluates (U = 0.999^(pairs before
+    it)), written per batch of ``batch`` duplicates: slot p of a batch
+    takes pixel p's fl. Without the skip rule every pixel evaluates every
+    pair of the walk, so one fl serves them all."""
     dev = recT.device
-    n_tiles = off.numel() - 1
-    starts = off[:-1]
-    n_walk = (top_all - starts).clamp(min=0)
     drecT = torch.zeros(recT.shape, dtype=torch.float32, device=dev)
-    total = int(n_walk.sum())
-    if total:
+    tile, k, slot, first, n_walk = _walk(off, top_all)
+    if tile.numel():
         longest = int(n_walk.max())
         decay = torch.as_tensor(np.concatenate([[1.0], np.multiply.accumulate(
             np.full(longest - 1, DECAY, np.float32))]).astype(np.float32),
             device=dev)
-        tile = torch.repeat_interleave(torch.arange(n_tiles, device=dev),
-                                       n_walk)
-        first = torch.cumsum(n_walk, 0) - n_walk        # flat index of k = 0
-        k = torch.arange(total, device=dev) - first[tile]  # walk index
-        slot = top_all[tile] - 1 - k
-        c = (recT[9, slot] * decay[k]).to(torch.float64)
+        k_end = torch.minimum((k // batch + 1) * batch, n_walk[tile]) - 1
+        col = torch.zeros_like(k)
+        if skip_rule:
+            # slot p of its batch; the batch's lowest slot is top - 1 - k_end
+            col = slot - (top_all[tile] - 1 - k_end)
+            need = _needed(recT, slot, tile, lk, acc, nq, n_gates,
+                           torch.arange(min(batch, kernel.PIX), device=dev))
+            ahead = torch.cumsum(need.to(torch.int64), 0)
+            before = ahead - need.to(torch.int64)
+            before = before - (ahead[first] - need[first].to(torch.int64))[
+                tile]                                # evaluated pairs before
+            c = torch.where(need, recT[9, slot][:, None] * decay[before],
+                            torch.zeros_like(before, dtype=torch.float32))
+        else:
+            c = (recT[9, slot] * decay[k])[:, None]
+        c = c.to(torch.float64)
         # prefix sums in walk order, per tile
         csum = torch.cumsum(c, 0)
         base = csum[first[tile]] - c[first[tile]]
-        k_end = torch.minimum((k // BATCH + 1) * BATCH, n_walk[tile]) - 1
-        fl = (csum[first[tile] + k_end] - base).to(torch.float32)
+        fl = (csum[first[tile] + k_end, col] - base[torch.arange(
+            k.numel(), device=dev), col]).to(torch.float32)
         drecT[:kernel.Q_ROW0 + nq, slot] = (fl * STANDIN)[None, :]
     return drecT
 
@@ -175,13 +244,17 @@ def _floor_plain(recT, off, top_all, nq):
 def bisect_backward_plain(variant, recT, tile_offsets, tiles_x: int,
                           tiles_y: int, settings, acc, lk, dacc,
                           nq: int = kernel.NQ, n_gates: int = 0,
-                          tile_batch: int = 64, count_pairs: bool = False):
+                          tile_batch: int = 64, count_pairs: bool = False,
+                          batch: int = BATCH, skip_rule: bool = False):
     """Plain PyTorch version of a T2 variant, walking each tile's range
     back to front in the TPU tool's stream chunks (vectorized over
     ``tile_batch`` tiles); the pair VJP is ``torch.autograd.grad`` of
-    ``pair_alpha_depth`` as in ``kernel.blend_backward_plain``. Returns
-    drecT [rec, cap]; with ``count_pairs`` also {"evaluated": pairs at or
-    before a pixel's deepest lk (every pair walked for ``floor``)}."""
+    ``pair_alpha_depth`` as in ``kernel.blend_backward_plain``. ``batch``
+    and ``skip_rule`` are the design's (``DESIGNS``): the floor publishes
+    per ``batch`` duplicates, and under the skip rule walks only the pairs
+    some chain keeps; every other variant acts on kept pairs only and is
+    the same under both. Returns drecT [rec, cap]; with ``count_pairs``
+    also {"evaluated": ``evaluated_pairs``}."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
     dev = recT.device
@@ -193,9 +266,11 @@ def bisect_backward_plain(variant, recT, tile_offsets, tiles_x: int,
     off = tile_offsets.to(torch.int64)
     recT, acc, dacc = recT.detach(), acc.detach(), dacc.detach()
     top, top_all = _tops(off, lk, acc, nq, G)
-    count = {"evaluated": evaluated_pairs(variant, off, acc, lk, nq, G)}
+    count = {"evaluated": evaluated_pairs(variant, off, acc, lk, nq, G, recT,
+                                          skip_rule)} if count_pairs else None
     if variant == "floor":
-        drecT = _floor_plain(recT, off, top_all, nq)
+        drecT = _floor_plain(recT, off, top_all, nq, batch, skip_rule, lk,
+                             acc, G)
         return (drecT, count) if count_pairs else drecT
     drecT = torch.zeros(recT.shape, dtype=torch.float32, device=dev)
     starts = off[:-1]
@@ -304,15 +379,25 @@ def bisect_backward_plain(variant, recT, tile_offsets, tiles_x: int,
 
 def bisect_backward_cuda(variant, recT, tile_offsets, tiles_x: int,
                          tiles_y: int, settings, acc, lk, dacc,
-                         nq: int = kernel.NQ, n_gates: int = 0, out=None):
-    """Launch a T2 variant (``csrc/bisect_bwd.cu``) on the current stream.
-    The kernel stores only the slots it walks, so the rest of dgrad must be
-    zero: a fresh zeroed one by default, or ``out``, a zeroed [rec, cap]
-    float32 buffer that repeated launches on the same inputs and variant
-    may share (each stores the same values), keeping the memset out of a
-    timed launch."""
+                         nq: int = kernel.NQ, n_gates: int = 0, out=None,
+                         design: str = "sm90", tile_order=None):
+    """Launch a T2 variant of ``design`` on the current stream: ``sm90``
+    (``csrc/bisect_bwd_sm90.cu``, the production K2's design) runs its
+    blocks on the tiles in ``tile_order`` (``StreamBinning.tile_order``,
+    required), ``first`` (``csrc/bisect_bwd.cu``) in tile order and takes
+    none. The kernel stores only the slots it walks, so the rest of dgrad
+    must be zero: a fresh zeroed one by default, or ``out``, a zeroed
+    [rec, cap] float32 buffer that repeated launches on the same inputs
+    and variant may share (each stores the same values), keeping the
+    memset out of a timed launch."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    if design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}; one of "
+                         f"{tuple(DESIGNS)}")
+    if design == "first" and tile_order is not None:
+        raise ValueError("the first design runs the tiles in order and "
+                         "takes no tile_order")
     if (nq, n_gates) not in (FULL_BUILT if variant == "full" else BUILT):
         raise ValueError(f"the variants are built at (nq, G) in {BUILT}, "
                          f"full also at {FULL_BUILT[len(BUILT):]}, got "
@@ -327,8 +412,10 @@ def bisect_backward_cuda(variant, recT, tile_offsets, tiles_x: int,
             or lk.dtype != torch.int32):
         raise ValueError(f"acc/dacc must be [{n_tiles}, {kernel.PIX}, {chn}]"
                          f" float32 and lk [{n_tiles}, {kernel.PIX}, 1] int32")
-    lib = cuda_lib.load_library()
     dev = recT.device
+    if design == "sm90":
+        kernel._check_order(tile_order, n_tiles, dev)
+    lib = cuda_lib.load_library()
     if out is None:
         dgrad = torch.zeros(recT.shape, dtype=torch.float32, device=dev)
     elif (out.shape != recT.shape or out.dtype != torch.float32
@@ -338,26 +425,34 @@ def bisect_backward_cuda(variant, recT, tile_offsets, tiles_x: int,
     else:
         dgrad = out
     znear, zfar, index, stream = kernel._launch_args(settings, dev)
-    rc = lib.su_bisect_bwd(
-        VARIANTS.index(variant), recT.data_ptr(), recT.shape[0],
-        recT.shape[1], nq, n_gates, kernel.Q_ROW0 + nq,
-        tile_offsets.data_ptr(), n_tiles, tiles_x, znear, zfar,
-        acc.data_ptr(), lk.data_ptr(), dacc.data_ptr(), dgrad.data_ptr(),
-        index, stream)
-    cuda_lib.check(rc, f"bisect_bwd {variant} launch")
+    head = (VARIANTS.index(variant), recT.data_ptr(), recT.shape[0],
+            recT.shape[1], nq, n_gates, kernel.Q_ROW0 + nq,
+            tile_offsets.data_ptr())
+    tail = (n_tiles, tiles_x, znear, zfar, acc.data_ptr(), lk.data_ptr(),
+            dacc.data_ptr(), dgrad.data_ptr(), index, stream)
+    if design == "sm90":
+        rc = lib.su_bisect_bwd_sm90(*head, tile_order.data_ptr(), *tail)
+    else:
+        rc = lib.su_bisect_bwd(*head, *tail)
+    cuda_lib.check(rc, f"bisect_bwd {variant} ({design}) launch")
     cuda_lib.launch_counts["bisect_bwd"] += 1
     return dgrad
 
 
 def bisect_backward(variant, recT, tile_offsets, tiles_x: int, tiles_y: int,
                     settings, acc, lk, dacc, nq: int = kernel.NQ,
-                    n_gates: int = 0):
-    """A T2 variant: its kernel on a CUDA tensor, its plain version on a
-    CPU tensor."""
-    fn = bisect_backward_plain if recT.device.type == "cpu" \
-        else bisect_backward_cuda
-    return fn(variant, recT, tile_offsets, tiles_x, tiles_y, settings, acc,
-              lk, dacc, nq, n_gates)
+                    n_gates: int = 0, design: str = "sm90", tile_order=None):
+    """A T2 variant of ``design``: its kernel on a CUDA tensor (``sm90``
+    with ``tile_order``), its plain version with the design's batch and
+    skip rule on a CPU tensor."""
+    a = (variant, recT, tile_offsets, tiles_x, tiles_y, settings, acc, lk,
+         dacc, nq, n_gates)
+    if design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}; one of "
+                         f"{tuple(DESIGNS)}")
+    if recT.device.type == "cpu":
+        return bisect_backward_plain(*a, **DESIGNS[design])
+    return bisect_backward_cuda(*a, design=design, tile_order=tile_order)
 
 
 def cotangents(acc, nq: int, n_gates: int, seed: int = 3):
@@ -380,6 +475,10 @@ def main(argv=None):
     ap.add_argument("--gates", type=int, default=0, choices=(0, 5),
                     help="0: the photometric stream (nq 6); 5: the late "
                          "step's (nq 12, 5 gated chains)")
+    ap.add_argument("--design", default="sm90", choices=tuple(DESIGNS),
+                    help="sm90: the variants of the production K2 "
+                         "(csrc/blend_bwd_sm90.cuh); first: of its first "
+                         "design (csrc/blend_bwd.cuh)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args(argv)
@@ -400,22 +499,25 @@ def main(argv=None):
         cam = street.street_camera(args.device)
     recT, off, tx, ty, settings, nq, n_gates = street.street_stream(
         state, cam, late=args.gates == 5, device=args.device)
+    order = tiles.tile_order(off)
     acc, lk = kernel.blend_forward(recT, off, tx, ty, settings, nq, n_gates,
-                                   tile_order=tiles.tile_order(off))
+                                   tile_order=order)
     a = (recT, off, tx, ty, settings, acc, lk,
          cotangents(acc, nq, n_gates), nq, n_gates)
-    full = bisect_backward("full", *a)
+    kw = dict(design=args.design,
+              tile_order=order if args.design == "sm90" else None)
+    full = bisect_backward("full", *a, **kw)
 
     def ms_of(v):
         buf = torch.zeros_like(full)
         return timing.median_ms(
-            lambda: bisect_backward_cuda(v, *a, out=buf), args.reps)
+            lambda: bisect_backward_cuda(v, *a, out=buf, **kw), args.reps)
     full_ms = None if cpu else ms_of("full")
     for v in args.variants:
         t0 = time.perf_counter()
-        got = bisect_backward(v, *a)
+        got = bisect_backward(v, *a, **kw)
         host = (time.perf_counter() - t0) * 1e3
-        line = dict(variant=v, nq=nq, n_gates=n_gates,
+        line = dict(variant=v, design=args.design, nq=nq, n_gates=n_gates,
                     max_abs_diff_from_full=float((got - full).abs().max()))
         if cpu:
             line["host_ms_cpu_plain"] = host
