@@ -23,13 +23,13 @@ drives the two paths of the port on the 300k-surfel street scene at
   ``train_late_profile``), then the CLI with ``--semantics --sky``
   through a compressed schedule (``train_scene_synthetic_late``);
 * the measurement tools (phase group 9, ``streetunveiler_torch/tools/``):
-  every variant of the bisection kernels T1 (K1's) and T2 (K2's), at the
-  photometric (nq 6) and late (nq 12, G 5) configurations, against its
-  plain version on a dense-occlusion stack, ``full`` bit for bit against
-  the production K1/K2 at full width, then every variant timed on the
-  main path's streams; the micro-probes T3 (``micro_reduce``) and T4
-  (``micro_prefix``) against their plain versions and timed at the TPU
-  tools' sizes;
+  every variant of the bisection kernels T1 (K1's) and T2 (K2's) on
+  their first design, at the photometric (nq 6) and late (nq 12, G 5)
+  configurations, against its plain version on a dense-occlusion stack,
+  ``full`` bit for bit against the production K1/K2 at full width, then
+  every variant timed on the main path's streams; the micro-probes T3
+  (``micro_reduce``) and T4 (``micro_prefix``, its first design) against
+  their plain versions and timed at the TPU tools' sizes;
 * the probes (phase group 10): the per-step floors T5 and T6
   (``micro_floor``, every variant and width at the tool's sizes), the
   identity copies T7 and T8 (``probe_compose4``, ``probe_tax``) on the
@@ -64,7 +64,19 @@ drives the two paths of the port on the 300k-surfel street scene at
   stack, ``full`` bit for bit and register for register against the
   production K2 at nq 6, 12 and (12, 5), every variant timed in turns
   beside its first-design counterpart, and gated K2's time split by both
-  designs' variants (``bisect_bwd_sm90``).
+  designs' variants (``bisect_bwd_sm90``);
+* T1 on K1's H100 design and T4's redesign (phase group 14): T1's
+  variants rebuilt on ``csrc/blend_fwd_sm90.cuh``
+  (``csrc/bisect_fwd_sm90*.cu``) against their plain versions on the dense
+  stack and at full width, ``full`` bit for bit and register for register
+  against the production K1 at nq 6, 12 and (12, 5), every variant of both
+  designs timed in turns with both designs' evaluated pairs, and gated
+  K1's time split by both designs' variants (``bisect_fwd_sm90``); T4's
+  five modes on ``csrc/micro_prefix_sm90.cuh`` against its first design
+  (``serial`` and ``warpscan`` bit for bit) and the plain version, both
+  designs timed in turns, each tensor-core mode's gap to ``serial``, and
+  the serial loop's instruction floor from its SASS
+  (``micro_prefix_redesign``).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last two lines are the kernels table and
@@ -941,8 +953,9 @@ def ptxas_summary(log):
     gated at (6, 3) and (12, 5), as K<nq,G>; K3), and every instantiation
     of the measurement tools (T1<G,variant>, T2<nq,G,variant>, T3 and T4
     kernels, T5/T6<width,flags> of csrc/micro_floor.cu, the T7/T8 copy,
-    T9; T3's and T9's redesigns as ``*_sm90``, T2 on K2's H100 design as
-    ``T2 sm90<nq,G,variant>``), named by the translation unit that built
+    T9; T3's, T4's and T9's redesigns as ``*_sm90``, T1 and T2 on K1's
+    and K2's H100 design as ``T1 sm90<nq,G,variant>`` and ``T2
+    sm90<nq,G,variant>``), named by the translation unit that built
     them."""
     import re
     from streetunveiler_torch.tools import bisect_bwd, bisect_fwd
@@ -957,6 +970,8 @@ def ptxas_summary(log):
             ints = lambda m: [int(x) for x in m.groups()]
             fwd90 = re.search(r"blend_fwd_sm90_kernelILi(\d+)ELi(\d+)E",
                               line)
+            fwd90v = re.search(
+                r"blend_fwd_sm90_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
             bwd90 = re.search(
                 r"blend_bwd_sm90_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
             fwd = re.search(r"blend_fwd_kernelILi(\d+)ELi(\d+)E", line)
@@ -964,12 +979,15 @@ def ptxas_summary(log):
                             line)
             # the kernel's name follows its length in the mangled name
             probe = re.search(
-                r"\d(reduce_[a-z]+(?:_sm90)?|prefix_[a-z]+|fold_partials)"
-                r"(?:ILi(\d+)E)?", line)
+                r"\d(reduce_[a-z]+(?:_sm90)?|prefix_[a-z]+(?:_sm90)?"
+                r"|fold_partials)(?:ILi(\d+)E)?", line)
             walk = re.search(r"floor_walkILi(\d+)ELi(\d+)E", line)
             if bwd90 and unit.startswith("bisect"):
                 q, g, v = ints(bwd90)
                 name = f"T2 sm90<{q},{g},{bisect_bwd.VARIANTS[v]}>"
+            elif fwd90v and unit.startswith("bisect"):
+                q, g, v = ints(fwd90v)
+                name = f"T1 sm90<{q},{g},{bisect_fwd.VARIANTS[v]}>"
             elif fwd90 or bwd90:
                 q, g = ints(fwd90 or bwd90)[:2]
                 name = f"K{1 if fwd90 else 2}<{q},{g}>"
@@ -1159,8 +1177,10 @@ T3_LIBRARY = {
     "x.view(512, NV, 128).sum(-1).sum(-1)[:, None] * w":
         "micro_reduce_library",
     "x.sum(dim=1)[:, None] * w": "micro_reduce_library_one"}
-T4_OPS_PER_PAIR = 50   # csrc/micro_prefix.cu's serial mode, counted:
-#   the fake pair ~27, the epilogue ~17, the four running sums 6
+# T4: the f32 operations of a pair in the serial mode's loop, counted in
+# csrc/micro_prefix_sm90.cuh: the fake pair 22, the epilogue 16, the four
+# running sums 6
+T4_OPS_PER_PAIR = 44
 TOOL_REPS = 10
 
 
@@ -1171,20 +1191,25 @@ def rel_err(got, want, dims, floor):
     return float(((got - want).abs().amax(dim=dims) / scale).max())
 
 
-def t1_vs_plain(torch, bf, k1_args):
-    """Every T1 variant against its plain version on ``k1_args``: lk,
+def t1_vs_plain(torch, bf, k1_args, design="first"):
+    """Every T1 variant of ``design`` against its plain version (the
+    design's skip rule) on ``k1_args``: lk,
     every lk_g and the median (within TOL_MEDIAN) on all but FLIP_FRACTION
     of pixels, each channel within its tolerance over the pixels where they
     all agree (mismatch_frac counts the rest). Each entry also holds the
     median flips, the channel of the largest error, the largest absolute
-    error and the pairs the plain version evaluated."""
+    error and the pairs the plain version counts: the design's, and the
+    first design's (every pair a live chain reaches)."""
+    from streetunveiler_torch.ops.rasterizer import tiles
     nq, n_gates = k1_args[5], k1_args[6]
     ch = nq + 6
+    order = tiles.tile_order(k1_args[1]) if design == "sm90" else None
     out, ok = {}, True
     for v in bf.VARIANTS:
-        acc, lk = bf.bisect_forward_cuda(v, *k1_args)
+        acc, lk = bf.bisect_forward_cuda(v, *k1_args, design=design,
+                                         tile_order=order)
         want_acc, want_lk, count = bf.bisect_forward_plain(
-            v, *k1_args, count_pairs=True)
+            v, *k1_args, count_pairs=True, **bf.DESIGNS[design])
         torch.cuda.synchronize()
         same = torch.ones(acc.shape[:2], dtype=torch.bool, device="cuda")
         if lk is not None:
@@ -1215,6 +1240,8 @@ def t1_vs_plain(torch, bf, k1_args):
                       max_abs_err=float((acc[same] - want_acc[same]).abs()
                                         .max()),
                       evaluated_pairs=count["evaluated"],
+                      evaluated_pairs_first_design=count[
+                          "evaluated_first_design"],
                       within_tolerance=v_ok)
         ok = ok and v_ok
     return out, ok
@@ -1286,7 +1313,8 @@ def tool_phases(torch, photo_args, late_args, k2_photo):
         nq, n_gates = a[8], a[9]
         k1_args = a[:5] + (nq, n_gates)
         order = tiles.tile_order(a[1])
-        acc_t, lk_t = bisect_fwd.bisect_forward_cuda("full", *k1_args)
+        acc_t, lk_t = bisect_fwd.bisect_forward_cuda("full", *k1_args,
+                                                     design="first")
         acc_k, lk_k = kernel.blend_forward_cuda(*k1_args, tile_order=order)
         d_t = bisect_bwd.bisect_backward_cuda("full", *a, design="first")
         d_k = kernel.blend_backward_cuda(*a, tile_order=order)
@@ -1312,7 +1340,8 @@ def tool_phases(torch, photo_args, late_args, k2_photo):
         fwd = {}
         for v in bisect_fwd.VARIANTS:
             ms = timing.median_ms(
-                lambda: bisect_fwd.bisect_forward_cuda(v, *k1_args),
+                lambda: bisect_fwd.bisect_forward_cuda(v, *k1_args,
+                                                       design="first"),
                 TOOL_REPS)
             fwd[v] = dict(ms=ms, evaluated_pairs=f_res[v]["evaluated_pairs"])
         for v in bisect_fwd.VARIANTS:
@@ -1409,14 +1438,14 @@ def tool_phases(torch, photo_args, late_args, k2_photo):
     pairs = n_chunks * micro_prefix.S * micro_prefix.P
     modes, t4_ok = {}, True
     for mode in micro_prefix.MODES:
-        got = micro_prefix.micro_prefix_cuda(mode, rec)
+        got = micro_prefix.micro_prefix_cuda(mode, rec, "first")
         want = micro_prefix.micro_prefix_plain(mode, rec)
         torch.cuda.synchronize()
         err = rel_err(got, want, (0, 1), 0.0)
         tol = MICRO_TOL_MMA if mode.startswith("mma") else MICRO_TOL_F32
         m_ok = err <= tol and bool(torch.isfinite(got).all())
         ms = timing.median_ms(lambda: micro_prefix.micro_prefix_cuda(
-            mode, rec), TOOL_REPS)
+            mode, rec, "first"), TOOL_REPS)
         modes[mode] = dict(ms=ms, ns_per_chunk=ms * 1e6 / n_chunks,
                            precision=micro_prefix.PRECISION[mode],
                            max_rel_err=err, tolerance=tol,
@@ -1424,7 +1453,7 @@ def tool_phases(torch, photo_args, late_args, k2_photo):
         t4_ok = t4_ok and m_ok
     t4_plain_ms = timing.median_ms(
         lambda: micro_prefix.micro_prefix_plain("serial", rec), 1)
-    t4_err = float((micro_prefix.micro_prefix_cuda("serial", rec)
+    t4_err = float((micro_prefix.micro_prefix_cuda("serial", rec, "first")
                     - micro_prefix.micro_prefix_plain("serial", rec)
                     ).abs().max())
     # what the function reads: rows 0-2 of each chunk; writes: out
@@ -1441,6 +1470,7 @@ def tool_phases(torch, photo_args, late_args, k2_photo):
         del ops
         torch.cuda.empty_cache()
     emit("micro_prefix", chunks=n_chunks, pairs=pairs, modes=modes,
+         design="first",
          plain_ms_serial=t4_plain_ms, library_ms=t4_lib_ms,
          library_call="torch.cumsum(prefix_operands(rec), dim=-1): the scan "
                       "of the four operands alone",
@@ -1888,7 +1918,8 @@ def redesign_phases(torch, photo_args, sem_args, late_args, ptxas):
 
         # ---- K1
         new = lambda: kernel.blend_forward_cuda(*k1_args, tile_order=order)
-        old = lambda: bisect_fwd.bisect_forward_cuda("full", *k1_args)
+        old = lambda: bisect_fwd.bisect_forward_cuda("full", *k1_args,
+                                                     design="first")
         acc_n, lk_n = new()
         acc_o, lk_o = old()
         torch.cuda.synchronize()
@@ -2368,6 +2399,248 @@ def bisect_bwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas):
     return dict(ok=ok, launches=launches, t2=row)
 
 
+# ---------------------------------------------------------------------------
+# Phase group 14: T1 rebuilt on K1's H100 design (csrc/blend_fwd_sm90.cuh)
+# and T4 redesigned (csrc/micro_prefix_sm90.cuh), each against its first
+# design in the same call.
+
+# the MUFU's issue rate: 16 lanes an SM a clock, against the FP32 pipe's 128
+MUFU_INSTR_PER_S = F32_INSTR_PER_S * 16 / 128
+
+# the parts of gated K1's time the T1 variants split off: full minus the
+# variant (the floor is a time of its own; a transmittance product that
+# costs less than the frozen one counts as none)
+K1_SPLIT = {"pair_math": "full_nopair", "exp": "full_noexp",
+            "transmittance_product": "full_noprefix", "sums": "full_nosums",
+            "median": "full_nomed", "lk": "full_nolkmax"}
+
+
+def k1_split(variants):
+    """Gated K1's time split by the T1 variants' times ({variant: ms})."""
+    full = variants["full"]
+    parts = {k: full - variants[v] for k, v in K1_SPLIT.items()}
+    parts["transmittance_product"] = max(parts["transmittance_product"],
+                                         0.0)
+    return dict(full=full, walk_and_staging=variants["floor"], **parts,
+                not_split=full - variants["floor"] - sum(parts.values()))
+
+
+def bisect_fwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas):
+    """T1 on K1's H100 design (csrc/bisect_fwd_sm90*.cu): every variant
+    against its plain version (the exact pair skip) on the dense stack at
+    G 0 and 5 and at full width on the photometric and late streams;
+    ``full`` bit for bit against the production K1 with the same ptxas
+    registers and spills, at nq 6, nq 12 and (12, 5) on the captured
+    full-width streams; every variant timed in the turns first, new, new,
+    first beside its first-design counterpart (median of TOOL_REPS
+    CUDA-event times), with both designs' evaluated pairs; gated K1's time
+    split by both designs' variants. Returns the kernels-row numbers and
+    the verdict."""
+    from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
+    from streetunveiler_torch.tools import bisect_fwd, street, timing
+    cuda_lib.reset_launch_counts()
+    t_start = time.perf_counter()
+    ok = True
+    dense = street.dense_streams("cuda")
+    for n_gates, label in ((0, "photometric"), (5, "late")):
+        res, v_ok = t1_vs_plain(torch, bisect_fwd, dense[n_gates], "sm90")
+        emit(f"bisect_fwd_sm90_vs_plain_{label}_dense", nq=dense[n_gates][5],
+             n_gates=n_gates, duplicates=int(dense[n_gates][1][-1]),
+             variants=res, within_tolerance=v_ok)
+        ok = ok and v_ok
+
+    forms, row = {}, {}
+    for a, label in ((photo_args, "photometric"), (sem_args, "semantic"),
+                     (late_args, "late")):
+        nq, n_gates = a[8], a[9]
+        k1_args = a[:5] + (nq, n_gates)
+        order = tiles.tile_order(a[1])
+        acc_t, lk_t = bisect_fwd.bisect_forward_cuda(
+            "full", *k1_args, tile_order=order)
+        acc_k, lk_k = kernel.blend_forward_cuda(*k1_args, tile_order=order)
+        torch.cuda.synchronize()
+        exact = torch.equal(acc_t, acc_k) and torch.equal(lk_t, lk_k)
+        del acc_t, lk_t, acc_k, lk_k
+        regs = ptxas_numbers(ptxas.get(f"T1 sm90<{nq},{n_gates},full>"))
+        regs_k1 = ptxas_numbers(ptxas.get(f"K1<{nq},{n_gates}>"))
+        same_regs = regs is not None and regs == regs_k1
+        variants = bisect_fwd.VARIANTS if label != "semantic" else ("full",)
+        pairs = {}
+        if label != "semantic":
+            res, v_ok = t1_vs_plain(torch, bisect_fwd, k1_args, "sm90")
+            emit(f"bisect_fwd_sm90_vs_plain_{label}_full_width", nq=nq,
+                 n_gates=n_gates, duplicates=int(a[1][-1]), variants=res,
+                 within_tolerance=v_ok)
+            ok = ok and v_ok
+            pairs = {v: (res[v]["evaluated_pairs"],
+                         res[v]["evaluated_pairs_first_design"])
+                     for v in variants}
+            if label == "photometric":
+                row["max_abs_err"] = res["full"]["max_abs_err"]
+        times = {}
+        for v in variants:
+            call = dict(
+                first=lambda: bisect_fwd.bisect_forward_cuda(
+                    v, *k1_args, design="first"),
+                sm90=lambda: bisect_fwd.bisect_forward_cuda(
+                    v, *k1_args, tile_order=order))
+            t = {"first": [], "sm90": []}
+            for which in ("first", "sm90", "sm90", "first"):
+                t[which].append(timing.median_ms(call[which], TOOL_REPS))
+            times[v] = dict(
+                ms=statistics.mean(t["sm90"]),
+                ms_first_design=statistics.mean(t["first"]), ms_runs=t,
+                ptxas=ptxas_numbers(
+                    ptxas.get(f"T1 sm90<{nq},{n_gates},{v}>")),
+                ptxas_first_design=ptxas_numbers(
+                    ptxas.get(f"T1<{n_gates},{v}>")))
+            if v in pairs:
+                times[v].update(evaluated_pairs=pairs[v][0],
+                                evaluated_pairs_first_design=pairs[v][1])
+        for v in times:
+            times[v]["ms_minus_full"] = times[v]["ms"] - times["full"]["ms"]
+            times[v]["ms_minus_full_first_design"] = (
+                times[v]["ms_first_design"]
+                - times["full"]["ms_first_design"])
+        forms[label] = dict(nq=nq, n_gates=n_gates,
+                            full_bit_exact_vs_production=exact,
+                            ptxas_full=regs, ptxas_production=regs_k1,
+                            same_registers_and_spills=same_regs,
+                            blocks_per_sm=cuda_lib.occupancy(
+                                "bisect_fwd_sm90", nq, n_gates),
+                            variants=times)
+        ok = ok and exact and same_regs
+    late = forms["late"]["variants"]
+    split = k1_split({v: late[v]["ms"] for v in late})
+    split_first = k1_split({v: late[v]["ms_first_design"] for v in late})
+    emit("bisect_fwd_sm90", forms=forms, gated_k1_split=split,
+         gated_k1_split_first_design=split_first, reps=TOOL_REPS,
+         note="sm90 = csrc/blend_fwd_sm90.cuh's kernel on each variant "
+              "(csrc/bisect_fwd_sm90*.cu), first = csrc/blend_fwd.cuh's; "
+              "ms = mean of the medians of two runs of "
+              f"{TOOL_REPS} CUDA-event times each (ms_runs, in the turns "
+              "first, new, new, first); evaluated_pairs from the sm90 plain "
+              "version's count (the exact pair skip), "
+              "evaluated_pairs_first_design without it; gated_k1_split at "
+              "(12, 5): full minus each variant, the floor's own time as "
+              "walk_and_staging, a negative transmittance_product as 0")
+    torch.cuda.synchronize()
+    launches = cuda_lib.launch_counts["bisect_fwd"]
+    emit("bisect_fwd_sm90_summary", seconds=time.perf_counter() - t_start,
+         tool_launches=launches, within_tolerance=ok)
+    photo = forms["photometric"]["variants"]["full"]
+    row.update(ms=photo["ms"], ms_first_design=photo["ms_first_design"])
+    return dict(ok=ok, launches=launches, t1=row)
+
+
+def serial_instruction_floor(torch, pairs):
+    """T4's serial mode: the FP32-pipe and MUFU instructions of one pair
+    in its loop's SASS (``cuobjdump -sass`` on the built library), and the
+    least time the card needs to issue them at 128 FP32 and 16 MUFU lanes
+    an SM a clock (the clock of the published f32 peak); and the issue
+    floor of all the loop's instructions, one a clock for each of an SM's
+    four schedulers (128 thread instructions an SM a clock)."""
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch.tools import micro_prefix
+    tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", cuda_lib.library_path()],
+                          capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    counts = micro_prefix.sass_loop_counts(sass)
+    fp32_ms = counts["fp32_per_pair"] * pairs / F32_INSTR_PER_S * 1e3
+    mufu_ms = counts["mufu_per_pair"] * pairs / MUFU_INSTR_PER_S * 1e3
+    every = sum(counts["per_pair"].values())
+    return dict(**counts, all_per_pair=every, fp32_floor_ms=fp32_ms,
+                mufu_floor_ms=mufu_ms,
+                instruction_floor_ms=max(fp32_ms, mufu_ms),
+                issue_floor_ms=every * pairs / F32_INSTR_PER_S * 1e3)
+
+
+def micro_prefix_redesign(torch, ptxas):
+    """T4's redesign (csrc/micro_prefix_sm90.cuh) against its first design
+    (csrc/micro_prefix.cu) at the TPU tool's size: serial and warpscan bit
+    for bit, every mode of the redesign within its tolerance of the plain
+    version, both designs timed in the turns first, new, new, first
+    (median of TOOL_REPS CUDA-event times), each tensor-core mode's gap to
+    serial, ptxas; the serial mode's instruction floor. Returns the
+    kernels-row numbers and the verdict."""
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch.tools import micro_prefix, timing
+    cuda_lib.reset_launch_counts()
+    t_start = time.perf_counter()
+    rec = micro_prefix.make_input()
+    pairs = micro_prefix.NCHUNK * micro_prefix.S * micro_prefix.P
+    modes, ok = {}, True
+    for mode in micro_prefix.MODES:
+        first = micro_prefix.micro_prefix_cuda(mode, rec, "first")
+        new = micro_prefix.micro_prefix_cuda(mode, rec)
+        want = micro_prefix.micro_prefix_plain(mode, rec)
+        torch.cuda.synchronize()
+        mma = mode.startswith("mma")
+        err = rel_err(new, want, (0, 1), 0.0)
+        tol = MICRO_TOL_MMA if mma else MICRO_TOL_F32
+        equal = torch.equal(new, first)
+        m_ok = (err <= tol and bool(torch.isfinite(new).all())
+                and (mma or equal))
+        line = dict(bit_equal_first_design=equal, max_rel_err_vs_plain=err,
+                    max_abs_err=float((new - want).abs().max()),
+                    tolerance=tol, within_tolerance=m_ok,
+                    precision=micro_prefix.PRECISION[mode])
+        del first, new, want
+        t = {"first": [], "new": []}
+        for which in ("first", "new", "new", "first"):
+            design = "first" if which == "first" else "redesign"
+            t[which].append(timing.median_ms(
+                lambda: micro_prefix.micro_prefix_cuda(mode, rec, design),
+                TOOL_REPS))
+        kernel_name = {"serial": "prefix_serial",
+                       "warpscan": "prefix_warpscan"}.get(
+            mode, f"prefix_mma<{micro_prefix.MODES.index(mode)}>")
+        sm90_name = kernel_name.replace("<", "_sm90<") if mma \
+            else kernel_name + "_sm90"
+        line.update(ms=statistics.mean(t["new"]),
+                    ms_first_design=statistics.mean(t["first"]), ms_runs=t,
+                    ptxas=ptxas_numbers(ptxas.get(f"T4 {sm90_name}")),
+                    ptxas_first_design=ptxas_numbers(
+                        ptxas.get(f"T4 {kernel_name}")))
+        modes[mode] = line
+        ok = ok and m_ok
+    for line in modes.values():
+        line["ratio_to_first_design"] = line["ms"] / line["ms_first_design"]
+        line["ratio_to_serial"] = line["ms"] / modes["serial"]["ms"]
+    fastest = min(modes, key=lambda m: modes[m]["ms"])
+    t4_bytes = 4 * (3 * micro_prefix.NCHUNK * micro_prefix.S
+                    + micro_prefix.NCHUNK // micro_prefix.CPT
+                    * micro_prefix.P * 16)
+    bound_ms, bound_by = bound(t4_bytes, T4_OPS_PER_PAIR * pairs)
+    try:
+        floor = serial_instruction_floor(torch, pairs)
+    except (OSError, ValueError, subprocess.SubprocessError) as e:
+        floor = dict(error=repr(e))
+    emit("micro_prefix_redesign", chunks=micro_prefix.NCHUNK, pairs=pairs,
+         modes=modes, fastest_mode=fastest, bound_ms=bound_ms,
+         bound_by=bound_by, operations_per_pair=T4_OPS_PER_PAIR,
+         serial_instruction_floor=floor, within_tolerance=ok,
+         note="first design = csrc/micro_prefix.cu, redesign = "
+              "csrc/micro_prefix_sm90.cuh; ms = mean of the medians of two "
+              f"runs of {TOOL_REPS} CUDA-event times each (ms_runs, in the "
+              "turns first, new, new, first); ratio_to_serial against the "
+              "redesign's serial mode")
+    torch.cuda.synchronize()
+    launches = cuda_lib.launch_counts["micro_prefix"]
+    emit("micro_prefix_redesign_summary",
+         seconds=time.perf_counter() - t_start, tool_launches=launches,
+         within_tolerance=ok)
+    best = modes[fastest]
+    return dict(ok=ok, launches=launches, t4=dict(
+        ms=best["ms"], ms_first_design=best["ms_first_design"],
+        fastest_mode=fastest, max_abs_err=best["max_abs_err"],
+        bound_ms=bound_ms, bound_by=bound_by,
+        ms_each_mode={m: modes[m]["ms"] for m in modes},
+        ms_first_design_each_mode={m: modes[m]["ms_first_design"]
+                                   for m in modes}))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2654,6 +2927,16 @@ def main():
                              "disagrees with its plain version or with the "
                              "production K2")
 
+    # ---- 14. T1 on K1's H100 design, T4's redesign
+    t1_sm90 = bisect_fwd_sm90_phases(torch, k2[6]["args"], k2[12]["args"],
+                                     late["args"], ptxas)
+    t4r = micro_prefix_redesign(torch, ptxas)
+    if not (t1_sm90["ok"] and t4r["ok"]):
+        raise AssertionError("T1 on K1's H100 design disagrees with its "
+                             "plain version or with the production K1, or "
+                             "T4's redesign differs from its first design or "
+                             "its plain version")
+
     # ---- 8. kernels; launches are those of the training main path, and
     # of the late path for the gated variants
     k1g, k2g = late["k1"], late["k2"]
@@ -2715,26 +2998,32 @@ def main():
     ]
     # the tools run on no main path: launches 0 there, their own count in
     # tool_launches; ms is T1/T2 full on the photometric stream, T3's
-    # thread mode at k 13 and T4's serial mode (every variant and mode in
-    # the lines of phase group 9); T2's ms, ms_first_design and
-    # max_abs_err are phase group 13's (K2's H100 design), its
-    # tool_launches groups 9 and 13's; T3's ms, ms_first_design and
-    # library_ms are phase group 12's back-to-back times, its
-    # tool_launches groups 9 and 12's
+    # thread mode at k 13 and T4's fastest mode (every variant and mode in
+    # the lines of phase groups 9 and 14); T1's ms, ms_first_design and
+    # max_abs_err are phase group 14's (K1's H100 design), T2's phase
+    # group 13's (K2's), their tool_launches groups 9 and 14's or 13's;
+    # T3's ms, ms_first_design and library_ms are phase group 12's
+    # back-to-back times, its tool_launches groups 9 and 12's; T4's ms,
+    # ms_first_design, max_abs_err and bound are phase group 14's (its
+    # redesign), its tool_launches groups 9 and 14's
+    tools["T1"].update(t1_sm90["t1"])
+    tools["T1"]["tool_launches"] += t1_sm90["launches"]
+    tools["T4"].update(t4r["t4"])
+    tools["T4"]["tool_launches"] += t4r["launches"]
     tools["T2"].update(t2_sm90["t2"])
     tools["T2"]["tool_launches"] += t2_sm90["launches"]
     tools["T3"].update(probe_redesign["t3"])
     tools["T3"]["tool_launches"] += probe_redesign["launches"][
         "micro_reduce"]
     for key, name, source, replaces in (
-            ("T1", "T1 bisect_fwd variants of K1", csrc + "bisect_fwd.cu",
-             "tools/bisect_fwd.py:281"),
+            ("T1", "T1 bisect_fwd variants of K1",
+             csrc + "bisect_fwd_sm90.cu", "tools/bisect_fwd.py:281"),
             ("T2", "T2 bisect_bwd variants of K2",
              csrc + "bisect_bwd_sm90.cu", "tools/bisect_bwd.py:199"),
             ("T3", "T3 micro_reduce lane reductions",
              csrc + "micro_reduce_sm90.cuh", "tools/micro_reduce.py:70"),
-            ("T4", "T4 micro_prefix prefix sums", csrc + "micro_prefix.cu",
-             "tools/micro_prefix.py:105")):
+            ("T4", "T4 micro_prefix prefix sums",
+             csrc + "micro_prefix_sm90.cuh", "tools/micro_prefix.py:105")):
         r = tools[key]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -2744,8 +3033,9 @@ def main():
             tool_launches=r["tool_launches"], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r.get("library_ms"),
-            **{k: r[k] for k in ("ms_first_design", "library_call")
-               if k in r}))
+            **{k: r[k] for k in ("ms_first_design", "library_call",
+                                 "fastest_mode", "ms_each_mode",
+                                 "ms_first_design_each_mode") if k in r}))
     # T5-T9: launches are those of the probes' path in phase group 10 (each
     # tool's entry points once), tool_launches all of the group's, CUDA-graph
     # replays included; ms is T5's base variant and T6 at sb 128 (CUDA

@@ -1,7 +1,9 @@
-// T1 — the measurement variants of K1 (blend_fwd.cuh) for the bisection
-// tool streetunveiler_torch/tools/bisect_fwd.py: every variant at G = 0 in
-// this translation unit, at G = 5 in bisect_fwd_g5.cu (so the two build in
-// parallel), and the C interface.
+// T1's first design — the measurement variants of K1's first design
+// (blend_fwd.cuh) for the bisection tool
+// streetunveiler_torch/tools/bisect_fwd.py (its design "first"): every
+// variant at G = 0 in this translation unit, at G = 5 in bisect_fwd_g5.cu
+// (so the two build in parallel), and the C interface. The tool's default
+// design, the production K1's, is in bisect_fwd_sm90.cu.
 //
 // Replaces the Pallas kernels of tools/bisect_fwd.py (`make_kernel` :40,
 // launched by `build_call` :266-296 at :281), which time K1's body with

@@ -1,9 +1,12 @@
 // K1 — 2DGS blend forward, redesigned for the H100: the production
-// kernel template on (nq, G), instantiated by blend_fwd.cu (no gated
-// chains, nq 1..16, and the C interface) and blend_fwd_gated.cu (G = 1..6
-// gated chains at nq 6 and 12). The first design, blend_fwd.cuh, stays as
-// the template of the bisection variants (bisect_fwd*.cu); its `kFull` is
-// this kernel's reference, and the two agree bit for bit.
+// kernel template on (nq, G, measurement variant), instantiated at its
+// default variant kFull by blend_fwd.cu (no gated chains, nq 1..16, and
+// the C interface) and blend_fwd_gated.cu (G = 1..6 gated chains at nq 6
+// and 12), and at every variant by bisect_fwd_sm90.cu and
+// bisect_fwd_sm90_g5.cu (the bisection tool
+// streetunveiler_torch/tools/bisect_fwd.py). The first design,
+// blend_fwd.cuh, stays selectable in that tool (its own variants,
+// bisect_fwd*.cu); its `kFull` and this kernel agree bit for bit.
 //
 // Replaces the Pallas kernel streetunveiler_tpu/ops/rasterizer/kernel.py
 // `_fwd_kernel` (launched at kernel.py:670, the forward of
@@ -47,6 +50,40 @@
 //   that 32 warps hide the pair math's latency. Gated, that spills a few
 //   bytes at (12, 5) and still runs faster than one block an SM
 //   (PERF.md).
+//
+// Measurement variants (V), those of the first design (blend_fwd.cuh)
+// restated against this one. Each branch is an `if constexpr`, so kFull
+// compiles to the production kernel; each feeds acc or lk, so that nvcc
+// keeps what it computes; each keeps the exact pair skip, which drops
+// only pairs that change no output under the variant's own chain rules.
+// "Stream chunk": the 128 absolute slots [128c, 128c + 128) of the stream
+// (the TPU tool's visit), whose boundaries fall where the first design
+// put them.
+//   kFull           the production kernel.
+//   kFloor          the cp.async double-buffered staging, the geometry
+//                   hoist and the walk: per pair of the tile fl +=
+//                   opacity * T, T *= 0.999; every channel = 1e-30 fl
+//                   through the output slab, lk = -1; no pixel
+//                   terminates, so every pair of the tile is walked.
+//   kFloorNoAlldone kFloor with a plain barrier for the tile-wide exit.
+//   kFloorNoLk      kFloor without the lk store.
+//   kNoPair         eval_pair replaced by a = rec_0 1e-6 + px 1e-8, t =
+//                   rec_11 (payload channel 1), both read from the staged
+//                   raw rows; a pair contributes when a > 0.
+//   kNoExp          eval_pair's exp(x) replaced by 1 + x.
+//   kNoPrefix       no transmittance product: T is frozen within a stream
+//                   chunk (w = a T), multiplied by 0.999 at its end, and a
+//                   trigger freezes the pixel at the chunk's end; the skip
+//                   applies from that chunk end on.
+//   kNoTrigger      no early termination: a trigger drops the rest of its
+//                   stream chunk only, and the pixel never freezes (so
+//                   nothing is skipped).
+//   kNoSums         payload, alpha, depth and moment sums replaced by the
+//                   weight of one slot: payload channel k takes the pair at
+//                   chunk lane k, the other sums the pair at lane 0.
+//   kNoMed          no median.
+//   kNoLkMax        no last-index tracking: lk starts at 0 (the TPU tool's
+//                   first visit) and takes max(lk, T > 2) per pair: 0.
 
 #pragma once
 
@@ -70,6 +107,22 @@ constexpr int kMaxQ = 16;        // payload channels a launch may carry
 constexpr int kMaxGates = 6;     // gated chains a launch may carry
 constexpr int kMaxStream = 1 << 24;   // lk_g is exact below 2^24
 constexpr float kMedianT = 0.5f;
+constexpr int kChunkShift = 7;   // stream chunk of the TPU tool: 128 slots
+
+enum FwdVariant {
+  kFull = 0,
+  kFloor,
+  kFloorNoAlldone,
+  kFloorNoLk,
+  kNoPair,
+  kNoExp,
+  kNoPrefix,
+  kNoTrigger,
+  kNoSums,
+  kNoMed,
+  kNoLkMax,
+  kNumFwdVariants
+};
 
 // Shared memory, in floats: during the walk two buffers of raw record
 // rows and the hoisted geometry; after it the output slab.
@@ -85,7 +138,7 @@ struct Layout {
   static constexpr int kFloats = kWalk > kSlab ? kWalk : kSlab;
 };
 
-template <int NQ, int G>
+template <int NQ, int G, int V = kFull>
 __global__ void __launch_bounds__(kPix, 2)
 blend_fwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
                       const int32_t* __restrict__ tile_offsets,
@@ -95,6 +148,9 @@ blend_fwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
   using L = Layout<NQ, G>;
   constexpr int GA = G > 0 ? G : 1;
   constexpr unsigned kAllDone = (1u << G) - 1u;
+  constexpr bool kIsFloor =
+      V == kFloor || V == kFloorNoAlldone || V == kFloorNoLk;
+  constexpr bool kChunked = V == kNoPrefix || V == kNoTrigger;
   extern __shared__ __align__(16) float sm[];
   float* geo = sm + L::kGeoOff;             // [kGeo][kBatch]
   const int tile = tile_order[blockIdx.x];
@@ -116,7 +172,7 @@ blend_fwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
 #pragma unroll
   for (int k = 0; k < NQ; ++k) accq[k] = 0.0f;
   float alpha = 0.0f, deptha = 0.0f, m1 = 0.0f, m2 = 0.0f, med = 0.0f;
-  int last = -1;
+  int last = V == kNoLkMax ? 0 : -1;   // kNoLkMax: the TPU's first visit
   // gated chains: transmittance, sums and last kept index per class, and
   // one done bit per class
   float tg[GA], ag[GA], m1g[GA], m2g[GA];
@@ -128,6 +184,12 @@ blend_fwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
     lkg[g] = -1;
   }
   unsigned gdone = 0u;
+  // variants: the floor's sum; the current stream chunk with its pending
+  // trigger (kNoPrefix) or freeze (kNoTrigger), per chain
+  float fl = 0.0f;
+  int chunk = -1;
+  bool trig = false;
+  unsigned gtrig = 0u;
 
   // thread p < n starts the copies of slot base + p's record rows into buf
   const size_t ld = (size_t)cap;
@@ -149,7 +211,11 @@ blend_fwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
   for (int base = start; base < end; base += kBatch, ++it) {
     const bool live = !done || gdone != kAllDone;
     // barrier before the buffers are overwritten, and the tile-wide exit
-    if (__syncthreads_count(live) == 0) break;
+    if constexpr (V == kFloorNoAlldone) {
+      __syncthreads();
+    } else {
+      if (__syncthreads_count(live) == 0) break;
+    }
     const int nb = min(kBatch, end - base);
     const float* cur = sm + (it & 1) * L::kRaw * kBatch;
     stage(base + kBatch, min(kBatch, end - base - kBatch),
@@ -158,52 +224,107 @@ blend_fwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
     if (p < nb) su_pair::stage_geometry(cur + p, kBatch, geo, kBatch, p);
     __syncthreads();
     if (!live) continue;
+    if constexpr (kIsFloor) {
+      for (int j = 0; j < nb; ++j) {
+        fl += geo[13 * kBatch + j] * T;
+        T *= 0.999f;
+      }
+      continue;
+    }
     for (int j = 0; j < nb; ++j) {
+      if constexpr (kChunked) {
+        // the chunk's end comes before the skip, so that a frozen chain
+        // still sees every chunk boundary
+        const int c = (base + j) >> kChunkShift;
+        if (c != chunk) {
+          if (V == kNoPrefix && chunk >= 0) {
+            T *= 0.999f;
+            done = done || trig;
+#pragma unroll
+            for (int g = 0; g < GA; ++g) tg[g] *= 0.999f;
+            gdone |= gtrig;
+          }
+          chunk = c;
+          trig = false;
+          gtrig = 0u;
+        }
+      }
       if (G > 0 && done) {
         // the main chain is done: skip the pair if every chain of its
         // classes is done too
         const unsigned bits = (unsigned)(int)cur[L::kGateRaw * kBatch + j];
         if ((bits & ~gdone & kAllDone) == 0u) continue;
       }
-      const su_pair::Pair e =
-          su_pair::eval_pair(geo, kBatch, j, px, py, znear);
-      if (!e.contrib) continue;
-      const float a = e.a, t = e.t;
+      if constexpr (V == kNoLkMax) last = max(last, (int)(T > 2.0f));
+      float a, t;
+      if constexpr (V == kNoPair) {
+        a = cur[j] * 1e-6f + px * 1e-8f;
+        t = cur[(kQRow0 + 1) * kBatch + j] + py * 0.0f;
+        if (!(a > 0.0f)) continue;
+      } else {
+        const su_pair::Pair e =
+            su_pair::eval_pair<V != kNoExp>(geo, kBatch, j, px, py, znear);
+        if (!e.contrib) continue;
+        a = e.a;
+        t = e.t;
+      }
       const float m = dscale * (1.0f - znear / fmaxf(t, 1e-6f));
-      if (!done) {
+      if (!done && !(V == kNoTrigger && trig)) {
         const float t_after = T * (1.0f - a);
         if (t_after < t_eps) {
-          done = true;
-          if (G == 0) break;
+          if constexpr (kChunked) {
+            trig = true;
+          } else {
+            done = true;
+            if (G == 0) break;
+          }
         } else {
           const float w = a * T;
+          if constexpr (V == kNoSums) {
+            const int lane = (base + j) & ((1 << kChunkShift) - 1);
 #pragma unroll
-          for (int k = 0; k < NQ; ++k)
-            accq[k] += w * cur[(kQRow0 + k) * kBatch + j];
-          alpha += w;
-          deptha += w * t;
-          m1 += w * m;
-          m2 += w * m * m;
-          if (w > 0.0f && T > kMedianT) med = t;
-          last = base + j;
-          T = t_after;
+            for (int k = 0; k < NQ; ++k)
+              if (k == lane) accq[k] += w;
+            if (lane == 0) {
+              alpha += w;
+              deptha += w * t;
+              m1 += w * m;
+              m2 += w * m * m;
+            }
+          } else {
+#pragma unroll
+            for (int k = 0; k < NQ; ++k)
+              accq[k] += w * cur[(kQRow0 + k) * kBatch + j];
+            alpha += w;
+            deptha += w * t;
+            m1 += w * m;
+            m2 += w * m * m;
+          }
+          if (V != kNoMed && w > 0.0f && T > kMedianT) med = t;
+          if (V != kNoLkMax) last = base + j;
+          if (V != kNoPrefix) T = t_after;
         }
       }
       if (G > 0) {
         const int bits = (int)cur[L::kGateRaw * kBatch + j];
 #pragma unroll
         for (int g = 0; g < GA; ++g) {
-          if (((bits >> g) & 1) && !((gdone >> g) & 1u)) {
+          if (((bits >> g) & 1) && !((gdone >> g) & 1u) &&
+              !(V == kNoTrigger && ((gtrig >> g) & 1u))) {
             const float tg_after = tg[g] * (1.0f - a);
             if (tg_after < t_eps) {
-              gdone |= 1u << g;
+              if constexpr (kChunked) {
+                gtrig |= 1u << g;
+              } else {
+                gdone |= 1u << g;
+              }
             } else {
               const float w = a * tg[g];
               ag[g] += w;
               m1g[g] += w * m;
               m2g[g] += w * m * m;
               lkg[g] = base + j;
-              tg[g] = tg_after;
+              if (V != kNoPrefix) tg[g] = tg_after;
             }
           }
         }
@@ -215,22 +336,27 @@ blend_fwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
   __syncthreads();   // the walk's shared memory becomes the output slab
 
   float* o = sm + p * L::kCs;
+  if constexpr (kIsFloor) {
+    for (int k = 0; k < L::kCh; ++k) o[k] = fl * 1e-30f;
+    if (V != kFloorNoLk) lk[(size_t)tile * kPix + p] = -1;
+  } else {
 #pragma unroll
-  for (int k = 0; k < NQ; ++k) o[k] = accq[k];
-  o[NQ] = alpha;
-  o[NQ + 1] = deptha;
-  o[NQ + 2] = 0.0f;
-  o[NQ + 3] = m1;
-  o[NQ + 4] = m2;
-  o[NQ + 5] = med;
+    for (int k = 0; k < NQ; ++k) o[k] = accq[k];
+    o[NQ] = alpha;
+    o[NQ + 1] = deptha;
+    o[NQ + 2] = 0.0f;
+    o[NQ + 3] = m1;
+    o[NQ + 4] = m2;
+    o[NQ + 5] = med;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    o[NQ + 6 + 4 * g] = ag[g];
-    o[NQ + 7 + 4 * g] = m1g[g];
-    o[NQ + 8 + 4 * g] = m2g[g];
-    o[NQ + 9 + 4 * g] = (float)lkg[g];
+    for (int g = 0; g < G; ++g) {
+      o[NQ + 6 + 4 * g] = ag[g];
+      o[NQ + 7 + 4 * g] = m1g[g];
+      o[NQ + 8 + 4 * g] = m2g[g];
+      o[NQ + 9 + 4 * g] = (float)lkg[g];
+    }
+    lk[(size_t)tile * kPix + p] = last;
   }
-  lk[(size_t)tile * kPix + p] = last;
   __syncthreads();
   float* out = acc + (size_t)tile * kPix * L::kCh;
   for (int i = p; i < kPix * L::kCh; i += kPix) {
@@ -241,7 +367,7 @@ blend_fwd_sm90_kernel(const float* __restrict__ recT, int cap, int gate_row,
 
 // Launch on the current stream or, with `blocks_per_sm`, only report the
 // blocks of this instantiation an SM holds at once.
-template <int NQ, int G>
+template <int NQ, int G, int V = kFull>
 cudaError_t launch(const float* recT, int cap, int gate_row,
                    const int32_t* tile_offsets, const int32_t* tile_order,
                    int n_tiles, int tiles_x, float znear, float zfar,
@@ -249,13 +375,13 @@ cudaError_t launch(const float* recT, int cap, int gate_row,
                    int* blocks_per_sm) {
   const size_t smem = sizeof(float) * (size_t)Layout<NQ, G>::kFloats;
   cudaError_t err = cudaFuncSetAttribute(
-      blend_fwd_sm90_kernel<NQ, G>,
+      blend_fwd_sm90_kernel<NQ, G, V>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (blocks_per_sm)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, blend_fwd_sm90_kernel<NQ, G>, kPix, smem);
-  blend_fwd_sm90_kernel<NQ, G><<<n_tiles, kPix, smem, stream>>>(
+        blocks_per_sm, blend_fwd_sm90_kernel<NQ, G, V>, kPix, smem);
+  blend_fwd_sm90_kernel<NQ, G, V><<<n_tiles, kPix, smem, stream>>>(
       recT, cap, gate_row, tile_offsets, tile_order, tiles_x, znear, zfar,
       t_eps, acc, lk);
   return cudaGetLastError();
@@ -269,6 +395,23 @@ cudaError_t launch(const float* recT, int cap, int gate_row,
       const int32_t *tile_order, int n_tiles, int tiles_x, float znear,  \
       float zfar, float t_eps, float *acc, int32_t *lk, cudaStream_t s,  \
       int *blocks_per_sm
+
+// launch<NQ, G, V> for a variant given at run time
+template <int NQ, int G>
+cudaError_t launch_variant(int variant, SU_FWD90_PARAMS) {
+#define SU_BISECT_CASE(V) \
+  case V:                 \
+    return launch<NQ, G, V>(SU_FWD90_ARGS);
+  switch (variant) {
+    SU_BISECT_CASE(kFull) SU_BISECT_CASE(kFloor)
+    SU_BISECT_CASE(kFloorNoAlldone) SU_BISECT_CASE(kFloorNoLk)
+    SU_BISECT_CASE(kNoPair) SU_BISECT_CASE(kNoExp) SU_BISECT_CASE(kNoPrefix)
+    SU_BISECT_CASE(kNoTrigger) SU_BISECT_CASE(kNoSums)
+    SU_BISECT_CASE(kNoMed) SU_BISECT_CASE(kNoLkMax)
+  }
+#undef SU_BISECT_CASE
+  return cudaErrorInvalidValue;
+}
 
 // The arguments the C entries of K1 check.
 inline bool fwd_args_ok(int rec, int cap, int nq, int n_gates, int gate_row,

@@ -1,4 +1,8 @@
-// T4 — the per-chunk prefix-sum probe of tools/micro_prefix.py on an H100.
+// T4 — the per-chunk prefix-sum probe of tools/micro_prefix.py on an H100:
+// its first design (`su_micro_prefix_first`) and the C interface of both
+// designs (`su_micro_prefix` runs the redesign, micro_prefix_sm90.cuh,
+// which also holds the pair math, the modes and the tensor-core wrappers
+// the two share).
 //
 // Replaces the Pallas kernel of tools/micro_prefix.py (the closure `kern`
 // :43-102 inside `main`, launched at :105), which timed the ways the
@@ -30,9 +34,11 @@
 //               three products of 3xTF32 the third (A_lo B_hi) is zero and
 //               two passes are made.
 //
-// What bounds it on an H100: operations. ~1.1e9 (pixel, lane) pairs at
-// n_chunks = 16896, each ~40 f32 operations with an exp, a divide and a
-// log1p (0.66 ms at 67 TFLOP/s), against 26 MB of rows read (0.008 ms).
+// What bounds it on an H100: operations. 1.11e9 (pixel, lane) pairs at
+// n_chunks = 16896, each 44 f32 operations in the serial mode's loop (two
+// divides, two exps and a log1p among them; counted in
+// micro_prefix_sm90.cuh), 0.727 ms at 67 TFLOP/s, against 26 MB of rows
+// read (0.008 ms).
 //
 // Design: one block per tile walks its chunks, staging the three rows of
 // each chunk in shared memory. The tensor-core modes take the product with
@@ -40,73 +46,37 @@
 // X[n, j]: the triangle is the A operand, built from indices, and the
 // pair values of an 8-pixel group (kept in shared memory) are B.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "micro_prefix_sm90.cuh"
+
 namespace {
 
-constexpr int kP = 512;        // pixels per tile
-constexpr int kS = 128;        // lanes per chunk
-constexpr int kOut = 16;       // output channels
-constexpr int kCpt = 66;       // chunks per tile, the TPU tool's constant
+using su_prefix90::add_pair;
+using su_prefix90::bf16_round;
+using su_prefix90::kCpt;
+using su_prefix90::kMma3xTf32;
+using su_prefix90::kMmaBf16;
+using su_prefix90::kMmaBf16x2;
+using su_prefix90::kNumPrefixModes;
+using su_prefix90::kOut;
+using su_prefix90::kP;
+using su_prefix90::kS;
+using su_prefix90::kSerial;
+using su_prefix90::kWarpScan;
+using su_prefix90::mma_bf16;
+using su_prefix90::mma_tf32;
+using su_prefix90::pack_bf16;
+using su_prefix90::pair_vals;
+using su_prefix90::PairVals;
+using su_prefix90::store_out;
+using su_prefix90::to_tf32;
+using su_prefix90::warp_excl_scan;
+
 constexpr int kMmaWarps = 8;   // warps per block of the tensor-core modes
 constexpr int kGroupW = 8;     // pixels per tensor-core n-tile
 constexpr int kLd = kS + 4;    // padded row of the shared pair values
-
-enum PrefixMode {
-  kSerial = 0,
-  kWarpScan,
-  kMmaBf16,
-  kMmaBf16x2,
-  kMma3xTf32,
-  kNumPrefixModes
-};
-
-struct PairVals {
-  float w0, u, v, logom;
-};
-
-__device__ __forceinline__ PairVals pair_vals(float r1, float r2, float r3,
-                                              float sub) {
-  PairVals o;
-  const float a = r1 - sub * r3;
-  const float b = r2 - sub * r3;
-  const float kx = a * b - r3;
-  const float ky = b * r1 - a;
-  const float kz = a * r2 - b * r1;
-  const float kzs = fabsf(kz) < 1e-12f ? 1e-12f : kz;
-  o.u = kx / kzs;
-  o.v = ky / kzs;
-  const float rho = o.u * o.u + o.v * o.v;
-  const float alpha = fminf(0.99f, expf(-0.5f * rho));
-  o.w0 = alpha > 1e-3f ? alpha : 0.0f;
-  o.logom = log1pf(-o.w0);
-  return o;
-}
-
-// One pair's additions to the five distinct channels, from its exclusive
-// prefix sums.
-__device__ __forceinline__ void add_pair(float (&s)[5], const PairVals& e,
-                                         float L, float A, float M1,
-                                         float M2) {
-  const float T = expf(L);
-  const float w = e.w0 * T;
-  s[0] += w;
-  s[1] += w * e.u;
-  s[2] += w * (e.u * e.u * A + M2 - 2.0f * e.u * M1);
-  s[3] += w * e.v;
-  s[4] += w * T;
-}
-
-__device__ __forceinline__ void store_out(float* out, int tile, int p,
-                                          const float (&acc)[5]) {
-  float* o = out + ((size_t)tile * kP + p) * kOut;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) o[c] = acc[c];
-#pragma unroll
-  for (int c = 4; c < kOut; ++c) o[c] = acc[4];
-}
 
 __device__ __forceinline__ void stage_rows(const float* rec, size_t ld,
                                            int chunk, float* r, int tid,
@@ -142,24 +112,6 @@ prefix_serial(const float* __restrict__ rec, size_t ld,
     for (int k = 0; k < 5; ++k) acc[k] += s[k];
   }
   store_out(out, tile, p, acc);
-}
-
-// Exclusive scan of x over the warp's lanes (Hillis-Steele on the values
-// shifted by one lane), plus `carry`; `carry` becomes carry + the total.
-__device__ __forceinline__ float warp_excl_scan(float x, float& carry,
-                                                int lane) {
-  float y = __shfl_up_sync(0xffffffffu, x, 1);
-  if (lane == 0) y = 0.0f;
-  const float incl_last = __shfl_sync(0xffffffffu, x, 31);
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const float z = __shfl_up_sync(0xffffffffu, y, d);
-    if (lane >= d) y += z;
-  }
-  const float total = __shfl_sync(0xffffffffu, y, 31) + incl_last;
-  const float res = carry + y;
-  carry += total;
-  return res;
 }
 
 __global__ void __launch_bounds__(kP)
@@ -199,41 +151,6 @@ prefix_warpscan(const float* __restrict__ rec, size_t ld,
     }
   }
   store_out(out, tile, warp * 32 + lane, acc);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Shared pair values of one warp's 8-pixel group: [4][kGroupW][kLd] for
@@ -394,10 +311,11 @@ cudaError_t launch_mma(const float* rec, size_t ld, int n_tiles, float* out,
 
 // rec [rows >= 3, ld] f32 lane-major (ld >= n_chunks * 128); out
 // [n_chunks / 66, 512, 16] f32. mode: 0 serial, 1 warpscan, 2 mma_bf16,
-// 3 mma_bf16x2, 4 mma_3xtf32. Returns cudaGetLastError().
-extern "C" int su_micro_prefix(int mode, const float* rec, long long ld,
-                               int n_chunks, float* out, int device,
-                               void* stream) {
+// 3 mma_bf16x2, 4 mma_3xtf32. Returns cudaGetLastError(). The first
+// design.
+extern "C" int su_micro_prefix_first(int mode, const float* rec,
+                                     long long ld, int n_chunks, float* out,
+                                     int device, void* stream) {
   if (mode < 0 || mode >= kNumPrefixModes || n_chunks < 0 ||
       n_chunks % kCpt != 0 || ld < (long long)n_chunks * kS)
     return (int)cudaErrorInvalidValue;
@@ -421,4 +339,22 @@ extern "C" int su_micro_prefix(int mode, const float* rec, long long ld,
     default:
       return (int)launch_mma<kMma3xTf32>(rec, l, n_tiles, out, s);
   }
+}
+
+// The same function and arguments, by the redesign
+// (micro_prefix_sm90.cuh), which stages whole rows by 16-byte copies: rec
+// must be 16-byte aligned and ld a multiple of 4.
+extern "C" int su_micro_prefix(int mode, const float* rec, long long ld,
+                               int n_chunks, float* out, int device,
+                               void* stream) {
+  if (mode < 0 || mode >= kNumPrefixModes || n_chunks < 0 ||
+      n_chunks % kCpt != 0 || ld < (long long)n_chunks * kS || ld % 4 != 0 ||
+      (uintptr_t)rec % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = n_chunks / kCpt;
+  if (n_tiles == 0) return (int)cudaSuccess;
+  return (int)su_prefix90::run(mode, rec, (size_t)ld, n_tiles, out,
+                               (cudaStream_t)stream);
 }

@@ -167,11 +167,15 @@ def load_library() -> ctypes.CDLL:
             lib.su_bisect_fwd.restype = i32
             lib.su_bisect_bwd.argtypes = [i32] + bwd
             lib.su_bisect_bwd.restype = i32
-            # T2 on K2's H100 design takes the tile order as K2 does
+            # T1 and T2 on K1's and K2's H100 design take the tile order
+            # as K1 and K2 do
+            lib.su_bisect_fwd_sm90.argtypes = [i32] + fwd[:7] + [vp] + fwd[7:]
+            lib.su_bisect_fwd_sm90.restype = i32
             lib.su_bisect_bwd_sm90.argtypes = [i32] + bwd[:7] + [vp] + bwd[7:]
             lib.su_bisect_bwd_sm90.restype = i32
             for name in ("su_blend_fwd_occupancy", "su_blend_bwd_occupancy",
                          "su_bisect_fwd_occupancy",
+                         "su_bisect_fwd_sm90_occupancy",
                          "su_bisect_bwd_occupancy"):
                 getattr(lib, name).argtypes = [i32, i32, i32, vp]
                 getattr(lib, name).restype = i32
@@ -181,9 +185,11 @@ def load_library() -> ctypes.CDLL:
                 getattr(lib, name).argtypes = [i32, i32, vp, i32, i32, vp,
                                                vp, i32, vp]
                 getattr(lib, name).restype = i32
-            lib.su_micro_prefix.argtypes = [i32, vp, ctypes.c_longlong, i32,
-                                            vp, i32, vp]
-            lib.su_micro_prefix.restype = i32
+            # T4: the redesign (su_micro_prefix) and the first design
+            for name in ("su_micro_prefix", "su_micro_prefix_first"):
+                getattr(lib, name).argtypes = [i32, vp, ctypes.c_longlong,
+                                               i32, vp, i32, vp]
+                getattr(lib, name).restype = i32
             lib.su_micro_floor.argtypes = [i32, i32, vp, ctypes.c_longlong,
                                            vp, vp, i32, vp, vp, vp, vp, i32,
                                            vp]
@@ -203,8 +209,9 @@ def load_library() -> ctypes.CDLL:
 def occupancy(entry: str, nq: int, n_gates: int, device: int = 0) -> int:
     """Blocks of a blend kernel's (nq, n_gates) instantiation that one SM
     holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``):
-    ``entry`` is ``blend_fwd``/``blend_bwd`` (K1/K2) or ``bisect_fwd``/
-    ``bisect_bwd`` (their first design, the bisection tools' ``full``)."""
+    ``entry`` is ``blend_fwd``/``blend_bwd`` (K1/K2), ``bisect_fwd``/
+    ``bisect_bwd`` (their first design, the bisection tools' ``full``) or
+    ``bisect_fwd_sm90`` (T1's ``full`` on K1's H100 design)."""
     blocks = ctypes.c_int(0)
     rc = getattr(load_library(), f"su_{entry}_occupancy")(
         nq, n_gates, device, ctypes.addressof(blocks))

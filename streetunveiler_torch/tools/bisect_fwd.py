@@ -1,11 +1,21 @@
 """Bisect the blend forward's time on the real binned stream (T1).
 
 Counterpart of ``tools/bisect_fwd.py`` (its Pallas kernel, ``make_kernel``
-:40, is launched by ``build_call`` at :281): variants of kernel K1
-(``csrc/blend_fwd.cuh``, instantiated by ``csrc/bisect_fwd.cu`` at G = 0
-and ``csrc/bisect_fwd_g5.cu`` at G = 5) that differ only in the body,
-timed on the same grid and records, so that the differences from ``full``
-show where the kernel's time goes.
+:40, is launched by ``build_call`` at :281): variants of kernel K1 that
+differ only in the body, timed on the same grid and records, so that the
+differences from ``full`` show where the kernel's time goes. Two designs
+of K1 carry them (``DESIGNS``):
+
+* ``sm90`` (the default): the production K1, ``csrc/blend_fwd_sm90.cuh``,
+  instantiated on each variant by ``csrc/bisect_fwd_sm90.cu`` at
+  (nq, G) = (6, 0) and ``csrc/bisect_fwd_sm90_g5.cu`` at (12, 5); ``full``
+  also at (12, 0), and ``full`` is the production kernel. Its blocks take
+  the tiles in ``tile_order`` (``StreamBinning.tile_order``), and it skips
+  a pair once the main chain is done and so is every chain of the pair's
+  classes (the production K1's exact pair skip);
+* ``first``: K1's first design, ``csrc/blend_fwd.cuh`` (``csrc/
+  bisect_fwd.cu`` at G = 0 and ``csrc/bisect_fwd_g5.cu`` at G = 5, any
+  nq): the tiles in order, every pair a live chain reaches.
 
 Variants, each named after its TPU counterpart, and what it swaps out of
 the CUDA K1 ("stream chunk": the TPU tool's visit, the 128 slots
@@ -27,7 +37,8 @@ the CUDA K1 ("stream chunk": the TPU tool's visit, the 128 slots
   chunk (w = α·T), times 0.999 at its end, and a trigger freezes the pixel
   at the chunk's end.
 * ``full_notrigger``: no early termination: a trigger drops the rest of
-  its stream chunk only, and no pixel freezes.
+  its stream chunk only, and no pixel freezes (so ``sm90`` skips
+  nothing).
 * ``full_nosums``: the payload, α, depth and moment sums replaced by one
   slot's weight: payload channel k takes the pair at chunk lane k, the
   others the pair at lane 0.
@@ -42,14 +53,21 @@ question is T4's, ``micro_prefix``), ``full_mxsums`` (sums as one matmul:
 T3's, ``micro_reduce``), ``full_f32max`` and ``full_f32all`` (f32 instead
 of int maxima; a thread's max is one instruction either way).
 
+The skip drops only pairs that change no output under each variant's own
+chain rules, so every variant is the same function under both designs;
+the plain versions take the design's ``skip_rule`` (``kernel.py``'s rule:
+a skipped pair's α is zeroed before the chains run) and count the pairs
+that design evaluates.
+
 ``bisect_forward`` runs a variant's plain PyTorch version on a CPU tensor
 and its kernel on a CUDA tensor (raising if it cannot launch). Run on the
 card: ``python -m streetunveiler_torch.tools.bisect_fwd [variant ...]
-[--gates 5] [--device cuda]`` bins the 300k-surfel street at 1920x1280 as
-the main path does (``--gates 5``: the late step's stream, nq 12) and
-prints each variant's median ms (CUDA events), its evaluated pairs and its
-difference from ``full``; ``--device cpu`` runs the plain versions on the
-600-surfel miniature instead and prints no device time.
+[--gates 5] [--design first] [--device cuda]`` bins the 300k-surfel
+street at 1920x1280 as the main path does (``--gates 5``: the late step's
+stream, nq 12) and prints each variant's median ms (CUDA events), its
+evaluated pairs and its difference from ``full``; ``--device cpu`` runs
+the plain versions on the 600-surfel miniature instead and prints no
+device time.
 """
 
 from __future__ import annotations
@@ -62,7 +80,7 @@ import time
 import numpy as np
 import torch
 
-from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel
+from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
 from streetunveiler_torch.ops.rasterizer.blendmath import (map_depth,
                                                            pair_alpha_depth)
 from streetunveiler_torch.ops.rasterizer.types import MEDIAN_T
@@ -73,7 +91,13 @@ VARIANTS = ("full", "floor", "floor_noalldone", "floor_nolk", "full_nopair",
 FLOORS = ("floor", "floor_noalldone", "floor_nolk")
 TPU_ONLY = ("full_kogge", "full_suffmm", "full_mxsums", "full_f32max",
             "full_f32all")   # compute full's output: no CUDA form
-GATES = (0, 5)         # gated chains the variants are built for
+GATES = (0, 5)         # gated chains the first design's variants are
+#                        built for, at any nq
+BUILT = ((6, 0), (12, 5))          # (nq, G) of the sm90 variants
+FULL_BUILT = BUILT + ((12, 0),)    # and of sm90 `full` alone
+# whether each design skips the pairs no chain of the pair's classes
+# still needs (the production K1's exact pair skip)
+DESIGNS = {"sm90": dict(skip_rule=True), "first": dict(skip_rule=False)}
 CHUNK = 128            # the TPU tool's visit: 128 stream slots
 DECAY = 0.999          # T's stand-in factor: per pair (floors), per chunk
 STANDIN = 1e-30
@@ -146,19 +170,24 @@ def _floor_plain(variant, recT, off, n_tiles, ch, count_pairs):
     lk = None if variant == "floor_nolk" else torch.full(
         (n_tiles, kernel.PIX, 1), -1, dtype=torch.int32, device=dev)
     if count_pairs:
-        return acc, lk, {"evaluated": int(off[-1]) * kernel.PIX}
+        pairs = int(off[-1]) * kernel.PIX
+        return acc, lk, {"evaluated": pairs, "evaluated_first_design": pairs}
     return acc, lk
 
 
 def bisect_forward_plain(variant, recT, tile_offsets, tiles_x: int,
                          tiles_y: int, settings, nq: int = kernel.NQ,
                          n_gates: int = 0, tile_batch: int = 64,
-                         count_pairs: bool = False):
+                         count_pairs: bool = False, skip_rule: bool = False):
     """Plain PyTorch version of a T1 variant, walking each tile's range in
     the TPU tool's stream chunks (vectorized over ``tile_batch`` tiles).
     Returns (acc [T, PIX, nq+6+4G], lk [T, PIX, 1] int32, or None for
-    ``floor_nolk``); with ``count_pairs`` also {"evaluated": pairs a live
-    chain reached}."""
+    ``floor_nolk``); with ``count_pairs`` also {"evaluated": the pairs the
+    design evaluates, "evaluated_first_design": the first design's}:
+    without ``skip_rule`` (the first design) those a live chain reaches,
+    with it (``sm90``) those of them a live chain of the pair's own classes
+    reaches, the skipped pairs' α zeroed before the chains run. The floors
+    walk every pair under both designs."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
     dev = recT.device
@@ -176,6 +205,7 @@ def bisect_forward_plain(variant, recT, tile_offsets, tiles_x: int,
     lk = torch.full((n_tiles, kernel.PIX, 1), -1, dtype=torch.int32,
                     device=dev)
     evaluated = torch.zeros((), dtype=torch.int64, device=dev)
+    reached = torch.zeros((), dtype=torch.int64, device=dev)
     starts, ends = off[:-1], off[1:]
     first = starts // CHUNK
     n_chunks = torch.where(ends > starts, (ends - 1) // CHUNK - first + 1,
@@ -221,14 +251,33 @@ def bisect_forward_plain(variant, recT, tile_offsets, tiles_x: int,
             idx = lane[None, :, None].expand_as(a)
             none = torch.full_like(idx, -1)
 
-            w, t_excl, keep, live, t_carry, done = _chain(
-                variant, a, t_carry, done, t_eps, visited)
             gates = kernel.gate_bits(chunk[kernel.Q_ROW0 + nq], G) if G \
                 else None
+            carried = (t_carry, done, list(tg), list(done_g))
+
+            def chains(a):
+                """The main and gated chains over this chunk from the
+                carried state: (main, [per gate], live, needed), where
+                ``needed`` marks the pairs a live chain of the pair's own
+                classes reaches (the pairs the sm90 skip keeps)."""
+                main = _chain(variant, a, carried[0], carried[1], t_eps,
+                              visited)
+                per_g, live, needed = [], main[3], main[3]
+                for g in range(G):
+                    ag = torch.where(gates[g], a, torch.zeros_like(a))
+                    per_g.append(_chain(variant, ag, carried[2][g],
+                                        carried[3][g], t_eps, visited))
+                    live = live | per_g[g][3]
+                    needed = needed | (gates[g] & per_g[g][3])
+                return main, per_g, live, needed
+
+            main, per_g, live, needed = chains(a)
+            if skip_rule and G:
+                a = torch.where(needed, a, torch.zeros_like(a))
+                main, per_g, _, _ = chains(a)
+            w, t_excl, keep, _, t_carry, done = main
             for g in range(G):
-                ag = torch.where(gates[g], a, torch.zeros_like(a))
-                wg, _, keep_g, live_g, tg[g], done_g[g] = _chain(
-                    variant, ag, tg[g], done_g[g], t_eps, visited)
+                wg, _, keep_g, _, tg[g], done_g[g] = per_g[g]
                 wgm = wg * m
                 sums_g[g] += torch.stack([wg.sum(1), wgm.sum(1),
                                           (wgm * m).sum(1)])
@@ -236,8 +285,9 @@ def bisect_forward_plain(variant, recT, tile_offsets, tiles_x: int,
                 lk_new = torch.gather(gidx, 1, last_g.clamp(min=0))
                 lk_g[g] = torch.where(last_g >= 0, lk_new.to(torch.float32),
                                       lk_g[g])
-                live = live | live_g
-            evaluated += (inr[..., None] & live).sum()
+            reached += (inr[..., None] & live).sum()
+            evaluated += (inr[..., None] & (needed if skip_rule
+                                            else live)).sum()
 
             wm = w * m
             if variant == "full_nosums":
@@ -277,47 +327,75 @@ def bisect_forward_plain(variant, recT, tile_offsets, tiles_x: int,
     if variant == "full_nolkmax":
         lk.zero_()
     if count_pairs:
-        return acc, lk, {"evaluated": int(evaluated)}
+        return acc, lk, {"evaluated": int(evaluated),
+                         "evaluated_first_design": int(reached)}
     return acc, lk
 
 
 def bisect_forward_cuda(variant, recT, tile_offsets, tiles_x: int,
                         tiles_y: int, settings, nq: int = kernel.NQ,
-                        n_gates: int = 0):
-    """Launch a T1 variant (``csrc/bisect_fwd.cu``) on the current stream."""
+                        n_gates: int = 0, design: str = "sm90",
+                        tile_order=None):
+    """Launch a T1 variant of ``design`` on the current stream: ``sm90``
+    (``csrc/bisect_fwd_sm90.cu``, the production K1's design) runs its
+    blocks on the tiles in ``tile_order`` (``StreamBinning.tile_order``,
+    required), ``first`` (``csrc/bisect_fwd.cu``) in tile order and takes
+    none."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
-    if n_gates not in GATES:
-        raise ValueError(f"the variants are built at G in {GATES}, "
-                         f"got {n_gates}")
+    if design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}; one of "
+                         f"{tuple(DESIGNS)}")
+    if design == "first":
+        if tile_order is not None:
+            raise ValueError("the first design runs the tiles in order and "
+                             "takes no tile_order")
+        if n_gates not in GATES:
+            raise ValueError(f"the first design's variants are built at G "
+                             f"in {GATES}, got {n_gates}")
+    elif (nq, n_gates) not in (FULL_BUILT if variant == "full" else BUILT):
+        raise ValueError(f"the sm90 variants are built at (nq, G) in "
+                         f"{BUILT}, full also at {FULL_BUILT[len(BUILT):]}, "
+                         f"got ({nq}, {n_gates})")
     n_tiles = tiles_x * tiles_y
     kernel._check_blend_args("bisect_forward_cuda", recT, tile_offsets,
                              n_tiles, nq, n_gates)
-    lib = cuda_lib.load_library()
     dev = recT.device
+    if design == "sm90":
+        kernel._check_order(tile_order, n_tiles, dev)
+    lib = cuda_lib.load_library()
     acc = torch.empty((n_tiles, kernel.PIX, kernel.ch_for(nq) + 4 * n_gates),
                       dtype=torch.float32, device=dev)
     lk = torch.empty((n_tiles, kernel.PIX, 1), dtype=torch.int32, device=dev)
     znear, zfar, index, stream = kernel._launch_args(settings, dev)
-    rc = lib.su_bisect_fwd(
-        VARIANTS.index(variant), recT.data_ptr(), recT.shape[0],
-        recT.shape[1], nq, n_gates, kernel.Q_ROW0 + nq,
-        tile_offsets.data_ptr(), n_tiles, tiles_x, znear, zfar,
-        ctypes.c_float(settings.t_eps), acc.data_ptr(), lk.data_ptr(),
-        index, stream)
-    cuda_lib.check(rc, f"bisect_fwd {variant} launch")
+    head = (VARIANTS.index(variant), recT.data_ptr(), recT.shape[0],
+            recT.shape[1], nq, n_gates, kernel.Q_ROW0 + nq,
+            tile_offsets.data_ptr())
+    tail = (n_tiles, tiles_x, znear, zfar, ctypes.c_float(settings.t_eps),
+            acc.data_ptr(), lk.data_ptr(), index, stream)
+    if design == "sm90":
+        rc = lib.su_bisect_fwd_sm90(*head, tile_order.data_ptr(), *tail)
+    else:
+        rc = lib.su_bisect_fwd(*head, *tail)
+    cuda_lib.check(rc, f"bisect_fwd {variant} ({design}) launch")
     cuda_lib.launch_counts["bisect_fwd"] += 1
     return acc, None if variant == "floor_nolk" else lk
 
 
 def bisect_forward(variant, recT, tile_offsets, tiles_x: int, tiles_y: int,
-                   settings, nq: int = kernel.NQ, n_gates: int = 0):
-    """A T1 variant: its kernel on a CUDA tensor, its plain version on a
-    CPU tensor."""
-    fn = bisect_forward_plain if recT.device.type == "cpu" \
-        else bisect_forward_cuda
-    return fn(variant, recT, tile_offsets, tiles_x, tiles_y, settings, nq,
-              n_gates)
+                   settings, nq: int = kernel.NQ, n_gates: int = 0,
+                   design: str = "sm90", tile_order=None):
+    """A T1 variant of ``design``: its kernel on a CUDA tensor (``sm90``
+    with ``tile_order``), its plain version with the design's skip rule on
+    a CPU tensor."""
+    if design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}; one of "
+                         f"{tuple(DESIGNS)}")
+    a = (variant, recT, tile_offsets, tiles_x, tiles_y, settings, nq,
+         n_gates)
+    if recT.device.type == "cpu":
+        return bisect_forward_plain(*a, **DESIGNS[design])
+    return bisect_forward_cuda(*a, design=design, tile_order=tile_order)
 
 
 def main(argv=None):
@@ -327,6 +405,10 @@ def main(argv=None):
     ap.add_argument("--gates", type=int, default=0, choices=GATES,
                     help="0: the photometric stream (nq 6); 5: the late "
                          "step's (nq 12, 5 gated chains)")
+    ap.add_argument("--design", default="sm90", choices=tuple(DESIGNS),
+                    help="sm90: the variants of the production K1 "
+                         "(csrc/blend_fwd_sm90.cuh); first: of its first "
+                         "design (csrc/blend_fwd.cuh)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args(argv)
@@ -348,18 +430,22 @@ def main(argv=None):
         cam = street.street_camera(args.device)
     stream = street.street_stream(state, cam, late=args.gates == 5,
                                   device=args.device)
-    full = bisect_forward("full", *stream)
+    kw = dict(design=args.design, tile_order=tiles.tile_order(stream[1])
+              if args.design == "sm90" else None)
+    full = bisect_forward("full", *stream, **kw)
     ms_of = lambda v: timing.median_ms(
-        lambda: bisect_forward_cuda(v, *stream), args.reps)
+        lambda: bisect_forward_cuda(v, *stream, **kw), args.reps)
     full_ms = None if cpu else ms_of("full")
     for v in args.variants:
         t0 = time.perf_counter()
-        acc, lk = bisect_forward(v, *stream)
+        acc, lk = bisect_forward(v, *stream, **kw)
         host = (time.perf_counter() - t0) * 1e3
-        pairs = bisect_forward_plain(v, *stream, count_pairs=True)[2] \
+        pairs = bisect_forward_plain(
+            v, *stream, count_pairs=True, **DESIGNS[args.design])[2] \
             if cpu or v not in ("full_nosums", "full_nomed", "full_nolkmax") \
             else None
-        line = dict(variant=v, n_gates=args.gates, nq=stream[5],
+        line = dict(variant=v, design=args.design, n_gates=args.gates,
+                    nq=stream[5],
                     evaluated_pairs=None if pairs is None
                     else pairs["evaluated"],
                     max_abs_diff_from_full=float((acc - full[0]).abs().max()))
