@@ -76,7 +76,16 @@ drives the two paths of the port on the 300k-surfel street scene at
   (``serial`` and ``warpscan`` bit for bit) and the plain version, both
   designs timed in turns, each tensor-core mode's gap to ``serial``, and
   the serial loop's instruction floor from its SASS
-  (``micro_prefix_redesign``).
+  (``micro_prefix_redesign``);
+* T5 and T6 redesigned (phase group 15): the per-step floors on
+  ``csrc/micro_floor_sm90.cuh`` (phase A the terms, a warp a step across
+  the card; phase B the fold, a warp an output block, longest first,
+  no-op steps skipped in bulk) bit for bit against their first design
+  (``csrc/micro_floor.cu``'s ``floor_walk``) and within FLOOR_RTOL of
+  their plain versions in all six variants and three widths, both designs
+  timed in turns, the phases and tile 0's segment timed apart, ptxas
+  (no stack frame in the redesign's kernels), the bounds of phase group
+  10 and their shares, T6's library composite (``micro_floor_redesign``).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last two lines are the kernels table and
@@ -364,15 +373,79 @@ def k2_bytes(kernel, a):
                 + pix * (nq + 4 + 3 * n_gates) + rec * capp)
 
 
+def grad_runs(torch, kernel, loss_fn):
+    """The per-surfel side of K2's check. ``loss_fn()`` → (loss, grads)
+    runs twice through K2 and twice through the plain version
+    (``capture_blend_backward``), in the turns K2, plain, K2, plain: first
+    as the paths run it, then under ``torch.use_deterministic_algorithms(
+    True, warn_only=True)`` (the previous setting restored after). Reports
+    per mode each side's run-to-run spread per parameter, whether K2's
+    inputs (the captured blend-backward tensors) were bit equal between
+    its two runs, and the operations that warned of having no
+    deterministic form. The record scatter (autograd's ``index_add_``
+    along the surfels) adds each surfel's duplicates by CUDA atomics, in an
+    order that changes from run to run; the deterministic mode sums them in
+    a fixed order. The comparison takes the deterministic mode's first run
+    of each side, so that the two sides differ by the blend backward
+    alone. ``k2_inputs_sum`` tells calls apart whose K2 inputs differ.
+    Returns (args, loss, g_k2, g_plain, report)."""
+    import warnings
+
+    def side(plain):
+        with capture_blend_backward(kernel, plain=plain) as cb:
+            loss, g = loss_fn()
+        return loss, g, tuple(t.detach() if torch.is_tensor(t) else t
+                              for t in cb.args)
+
+    def spread(ga, gb):
+        return {n: float((ga[n] - gb[n]).abs().max()) for n in ga}
+
+    report = {}
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    try:
+        for mode in ("default", "deterministic"):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if mode == "deterministic":
+                    torch.use_deterministic_algorithms(True, warn_only=True)
+                loss, k_1, a_1 = side(False)
+                _, p_1, _ = side(True)
+                _, k_2, a_2 = side(False)
+                _, p_2, _ = side(True)
+                torch.cuda.synchronize()
+            report[mode] = dict(
+                run_to_run_max_abs=dict(k2=spread(k_1, k_2),
+                                        plain=spread(p_1, p_2)),
+                k2_minus_plain_max_abs=spread(k_1, p_1),
+                k2_inputs_bit_equal=all(
+                    torch.equal(x, y) for x, y in zip(a_1, a_2)
+                    if torch.is_tensor(x)),
+                # K2's inputs, summed in f64: equal between calls only if
+                # the state reaching this check is
+                k2_inputs_sum=dict(records=float(a_1[0].double().sum()),
+                                   cotangents=float(a_1[7].double().sum())),
+                nondeterministic_ops=sorted({
+                    str(w.message).splitlines()[0][:200] for w in caught
+                    if "deterministic" in str(w.message)}))
+            del k_2, p_2, a_2
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    return a_1, loss, k_1, p_1, report
+
+
 def check_k2(torch, kernel, a, g_k2, g_plain, label, reps=20, **fields):
     """K2 against its plain version on the captured arguments ``a`` of a
-    real loss's backward: per record row, then per surfel (the loss's
-    gradients through K2 against those through the plain version, after
-    the record scatter). Times both and bounds K2 on these inputs."""
+    real loss's backward: per record row (and K2 run twice, bit for bit),
+    then per surfel (the loss's gradients through K2 against those through
+    the plain version, after the record scatter: ``grad_runs``'
+    deterministic ones). Times both and bounds K2 on these inputs."""
     from streetunveiler_torch.ops.rasterizer import tiles
     recT, off, _, _, _, _, lk, _, nq, n_gates = a
     order = tiles.tile_order(off)   # the binning's work, outside the time
     got = kernel.blend_backward_cuda(*a, tile_order=order)
+    k2_repeat_equal = torch.equal(
+        got, kernel.blend_backward_cuda(*a, tile_order=order))
     want, counts = kernel.blend_backward_plain(*a, count_pairs=True)
     torch.cuda.synchronize()
     row_scale = want.abs().amax(dim=1)
@@ -398,11 +471,12 @@ def check_k2(torch, kernel, a, g_k2, g_plain, label, reps=20, **fields):
     ops = k2_ops(counts, nq)
     bound_ms, bound_by = bound(nbytes, ops)
     first_bound = bound(nbytes, k2_ops(counts, nq, "evaluated"))[0]
-    ok = (rows_ok and bool(torch.isfinite(got).all())
+    ok = (rows_ok and k2_repeat_equal and bool(torch.isfinite(got).all())
           and all(v["within_tolerance"] and v["finite"]
                   for v in surfel.values()))
     emit(label, nq=nq, n_gates=n_gates, record_rows=rec,
          row_max_abs_err_rel=row_err, row_tolerance_rel=ROW_TOL_REL,
+         k2_bit_equal_run_to_run=k2_repeat_equal,
          per_surfel=surfel, grad_tolerance=dict(atol_rel=GRAD_ATOL_REL,
                                                 rtol=GRAD_RTOL),
          evaluated_pairs=counts[EVALUATED],
@@ -426,33 +500,29 @@ def k2_vs_plain(torch, kernel, state, cam, gt, gt_sem, bg, cap, opt, nq):
     (every stage-1 loss term on), at full width: per record row, then per
     surfel after the record scatter."""
     sem = gt_sem if nq == 12 else None
-    with capture_blend_backward(kernel) as cap_k2:
-        loss, g_k2, _ = loss_grads(torch, state, cam, gt, bg, opt,
-                                   TRAIN_ITER0, cap, sem)
-    with capture_blend_backward(kernel, plain=True):
-        _, g_plain, _ = loss_grads(torch, state, cam, gt, bg, opt,
-                                   TRAIN_ITER0, cap, sem)
-    a = tuple(t.detach() if torch.is_tensor(t) else t for t in cap_k2.args)
+
+    def loss_fn():
+        loss, g, _ = loss_grads(torch, state, cam, gt, bg, opt, TRAIN_ITER0,
+                                cap, sem)
+        return loss, g
+    a, loss, g_k2, g_plain, runs = grad_runs(torch, kernel, loss_fn)
     if a[8] != nq:
         raise AssertionError(f"the loss ran the blend at nq={a[8]}, "
                              f"not {nq}")
     return dict(check_k2(torch, kernel, a, g_k2, g_plain,
-                         f"k2_vs_plain_nq{nq}", loss=float(loss)), args=a)
+                         f"k2_vs_plain_nq{nq}", loss=float(loss),
+                         surfel_grad_runs=runs), args=a)
 
 
 def gated_vs_plain(torch, kernel, loss_fn, case):
     """Gated K1 and K2 against their plain versions on one loss's blend:
-    ``loss_fn()`` → (loss, grads) runs the loss and its gradients; it runs
-    twice, its backward through K2, then through the plain version. K1's
+    ``loss_fn()`` → (loss, grads) runs the loss and its gradients, its
+    backward through K2 and through the plain version (``grad_runs``). K1's
     inputs are the forward's records (the captured arguments)."""
     from streetunveiler_torch.ops.rasterizer import tiles
-    with capture_blend_backward(kernel) as cb:
-        loss, g_k2 = loss_fn()
-    with capture_blend_backward(kernel, plain=True):
-        _, g_plain = loss_fn()
-    # the captured records require grad: detached, the plain versions
-    # below build no graph
-    a = tuple(t.detach() if torch.is_tensor(t) else t for t in cb.args)
+    # the captured records, detached: the plain versions below build no
+    # graph
+    a, loss, g_k2, g_plain, runs = grad_runs(torch, kernel, loss_fn)
     recT, off, tx, ty, settings, _, _, _, nq, n_gates = a
     k1_args = (recT, off, tx, ty, settings, nq, n_gates)
     order = tiles.tile_order(off)   # the binning's work, outside the time
@@ -481,7 +551,8 @@ def gated_vs_plain(torch, kernel, loss_fn, case):
         operations=ops, bound_ms=k1_bound,
         bound_ms_first_design_pairs=first_bound)
     k2 = check_k2(torch, kernel, a, g_k2, g_plain,
-                  f"k2_vs_plain_gated_{case}", reps=10, loss=float(loss))
+                  f"k2_vs_plain_gated_{case}", reps=10, loss=float(loss),
+                  surfel_grad_runs=runs)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=k1_bound, bound_by=k1_by,
                 bound_ms_first_design_pairs=first_bound,
                 max_abs_err=k1_err, counts=counts,
@@ -552,6 +623,15 @@ def ground_truth(torch, state, cam, cap):
                                           ).argmax(dim=-1).to(torch.int32)
     torch.cuda.synchronize()
     return bg, gt, gt_sem
+
+
+def state_copy(state):
+    """``state`` with copies of its parameters, which ``train_step``
+    updates in place."""
+    import dataclasses
+    p = state.params
+    return dataclasses.replace(state, params=dataclasses.replace(p, **{
+        f.name: getattr(p, f.name).clone() for f in dataclasses.fields(p)}))
 
 
 def host_ms(torch, fn, reps):
@@ -803,7 +883,8 @@ def train_phases(torch, state, cam, cap, bg, gt, gt_sem):
 
 
 def late_phases(torch, state, cam, cap, bg, gt, gt_sem):
-    """The late-phase step at full width: gated K1/K2 against their plain
+    """The late-phase step at full width on ``state`` (the street state as
+    built, the same in every run): gated K1/K2 against their plain
     versions (the late loss, and a dense-occlusion stack), then
     TRAIN_STEPS + 1 late steps with the sky, their time by stage and
     their profile. Returns what the kernels line needs of it."""
@@ -952,8 +1033,9 @@ def ptxas_summary(log):
     production instantiations the paths run (K1 and K2 at nq 6, 9 and 12,
     gated at (6, 3) and (12, 5), as K<nq,G>; K3), and every instantiation
     of the measurement tools (T1<G,variant>, T2<nq,G,variant>, T3 and T4
-    kernels, T5/T6<width,flags> of csrc/micro_floor.cu, the T7/T8 copy,
-    T9; T3's, T4's and T9's redesigns as ``*_sm90``, T1 and T2 on K1's
+    kernels, T5/T6<width,flags> of csrc/micro_floor.cu and its
+    redesign's ``T5/T6 terms<width,flags>`` and ``T5/T6 fold<flags>``,
+    the T7/T8 copy, T9; T3's, T4's and T9's redesigns as ``*_sm90``, T1 and T2 on K1's
     and K2's H100 design as ``T1 sm90<nq,G,variant>`` and ``T2
     sm90<nq,G,variant>``), named by the translation unit that built
     them."""
@@ -982,6 +1064,8 @@ def ptxas_summary(log):
                 r"\d(reduce_[a-z]+(?:_sm90)?|prefix_[a-z]+(?:_sm90)?"
                 r"|fold_partials)(?:ILi(\d+)E)?", line)
             walk = re.search(r"floor_walkILi(\d+)ELi(\d+)E", line)
+            terms = re.search(r"floor_termsILi(\d+)ELi(\d+)E", line)
+            fold = re.search(r"floor_foldILi(\d+)E", line)
             if bwd90 and unit.startswith("bisect"):
                 q, g, v = ints(bwd90)
                 name = f"T2 sm90<{q},{g},{bisect_bwd.VARIANTS[v]}>"
@@ -1000,6 +1084,11 @@ def ptxas_summary(log):
             elif walk:
                 w, flags = ints(walk)
                 name = f"T{6 if flags & 16 else 5}<{w},{flags}>"
+            elif terms:
+                w, flags = ints(terms)
+                name = f"T{6 if flags & 16 else 5} terms<{w},{flags}>"
+            elif fold:
+                name = f"T5/T6 fold<{ints(fold)[0]}>"
             elif "copy_int4" in line or "mmt3_kernel" in line:
                 name = "T7/T8 copy" if "copy_int4" in line else "T9"
             elif "mmt3_sm90_kernel" in line:
@@ -1508,13 +1597,11 @@ MMT3_PLAIN_TOL, MMT3_TRUTH_TOL = 1e-6, 2.0 ** -14
 BF16_OPS_PER_S = 989e12      # published H100 SXM dense bf16 tensor rate
 
 
-def graph_ms(torch, fn, replayed, calls=20, replays=5):
-    """Device time of one call of ``fn``: ``calls`` calls captured in one
-    CUDA graph, its replays timed between CUDA events, the median replay
-    over ``calls``. The host's time per call, which sets a launch-bound
-    call's event time, is left out; the launch gaps inside the graph stay.
-    A wrapper counts its launch once, at capture; the kernel launches the
-    graph's replays make are added to ``replayed`` (a Counter by key)."""
+def capture_graph(torch, fn, replayed, calls, replays):
+    """``calls`` calls of ``fn`` captured in one CUDA graph (after a warm
+    call on a side stream), replayed once. A wrapper counts its launch
+    once, at capture; the kernel launches of the ``replays`` replays to
+    come and of the first are added to ``replayed`` (a Counter by key)."""
     from streetunveiler_torch.ops.rasterizer import cuda_lib
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -1531,17 +1618,49 @@ def graph_ms(torch, fn, replayed, calls=20, replays=5):
         replayed[k] += (n - before.get(k, 0)) * (replays + 1)
     graph.replay()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / calls)
-    del graph
-    return statistics.median(times)
+    return graph
+
+
+def replay_ms(torch, graph, calls):
+    """One replay of ``graph`` between CUDA events, per call."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / calls
+
+
+def graph_ms(torch, fn, replayed, calls=20, replays=5):
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, its replays timed between CUDA events, the median replay
+    over ``calls``. The host's time per call, which sets a launch-bound
+    call's event time, is left out; the launch gaps inside the graph stay.
+    Launches as ``capture_graph`` counts them."""
+    graph = capture_graph(torch, fn, replayed, calls, replays)
+    return statistics.median(replay_ms(torch, graph, calls)
+                             for _ in range(replays))
+
+
+def graph_turns(torch, a, b, replayed, rounds=8, calls=20):
+    """Device time of one call of ``a`` and of ``b``, each captured as
+    ``calls`` calls in one CUDA graph, the two graphs' replays timed
+    between CUDA events in the turns a, b, b, a for ``rounds`` rounds:
+    (times of a, times of b) per call, 2·rounds each. Launches as
+    ``capture_graph`` counts them."""
+    graphs = [capture_graph(torch, fn, replayed, calls, 2 * rounds)
+              for fn in (a, b)]
+    times = ([], [])
+    for _ in range(rounds):
+        for which in (0, 1, 1, 0):
+            times[which].append(replay_ms(torch, graphs[which], calls))
+    return times
+
+
+def turns_summary(times):
+    return dict(median=statistics.median(times), min=min(times),
+                max=max(times), n=len(times))
 
 
 def launch_floor_ms(torch):
@@ -1727,14 +1846,28 @@ def probe_phases(torch):
         wrapper_stack=lambda: probe_compose4.identity_copy_stack_cuda(off))
     replayed = collections.Counter()
     dev = {k: graph_ms(torch, fn, replayed) for k, fn in dev.items()}
+    # the copy against clone beyond the spread: both replayed in turns
+    vs_clone = {}
+    for name, x, key in (("T8", pad1, "identity"),
+                         ("T7", pad_stack, "identity_stack")):
+        kt, ct = graph_turns(torch, lambda: probe_tax.copy_cuda(x, key),
+                             lambda: x.clone(), replayed)
+        vs_clone[name] = dict(kernel_ms=turns_summary(kt),
+                              clone_ms=turns_summary(ct),
+                              loses_beyond_spread=min(kt) > max(ct),
+                              wins_beyond_spread=max(kt) < min(ct))
     emit("identity_time", values=off.numel(), padded_values=pad1.numel(),
          event_ms=dict(kernel=t8_ms, kernel_stack=t7_ms,
                        wrapper=t8_wrapper_ms, wrapper_stack=t7_wrapper_ms,
                        clone=clone_ms, clone_stack=clone_stack_ms),
-         device_ms=dev,
+         device_ms=dev, kernel_vs_clone=vs_clone,
          note="kernel: the copy of the padded array alone; wrapper: padding, "
               "copy and slice; plain = clone; event_ms brackets the host's "
-              "path too, device_ms replays 20 calls in a CUDA graph")
+              "path too, device_ms replays 20 calls in a CUDA graph; "
+              "kernel_vs_clone: 8 rounds of the turns kernel, clone, clone, "
+              "kernel, each a replay of 20 calls in a CUDA graph (ms a "
+              "call); loses_beyond_spread: the kernel's fastest replay is "
+              "slower than clone's slowest")
     t9 = dict(kernel=lambda: probe_mmt3.mmt3_cuda(w, b),
               plain=lambda: probe_mmt3.mmt3_plain(w, b),
               library=lambda: probe_mmt3.mmt3_library(w, b))
@@ -1807,11 +1940,11 @@ def probe_phases(torch):
     rows["T7"] = dict(ms=dev["kernel_stack"], plain_ms=dev["plain_stack"],
                       bound_ms=t7_bound, bound_by=t7_by, max_abs_err=0.0,
                       library_ms=dev["clone_stack"], key="identity_stack",
-                      launch_floor_ms=floor_ms)
+                      launch_floor_ms=floor_ms, vs_clone=vs_clone["T7"])
     rows["T8"] = dict(ms=dev["kernel"], plain_ms=dev["plain"],
                       bound_ms=t8_bound, bound_by=t8_by, max_abs_err=0.0,
                       library_ms=dev["clone"], key="identity",
-                      launch_floor_ms=floor_ms)
+                      launch_floor_ms=floor_ms, vs_clone=vs_clone["T8"])
     rows["T9"] = dict(ms=t9_dev["kernel"], plain_ms=t9_dev["plain"],
                       bound_ms=t9_bound, bound_by=t9_by, max_abs_err=t9_abs,
                       library_ms=t9_dev["library"], key="mmt3",
@@ -2641,6 +2774,228 @@ def micro_prefix_redesign(torch, ptxas):
                                    for m in modes}))
 
 
+# ---------------------------------------------------------------------------
+# Phase group 15: T5 and T6 redesigned (csrc/micro_floor_sm90.cuh) against
+# their first design (csrc/micro_floor.cu's floor_walk), at the tool's
+# sizes. The bounds are phase group 10's (T5 base, T6 at width 128).
+
+# the flags of each variant's kernels (csrc/micro_floor_sm90.cuh's
+# variant_flags): first, scratch, alldone, two outputs, linear
+FLOOR_FLAGS = dict(base=11, alldone=7, one_out=3, static_out=3,
+                   no_scratch=1, prefetch2=2, linear=16)
+
+
+def floor_ptxas(ptxas, variant, width):
+    """ptxas numbers of a T5/T6 variant's kernels: the redesign's phase A
+    and phase B, the first design's walk."""
+    flags = FLOOR_FLAGS["linear" if variant.startswith("linear") else variant]
+    t = "T6" if flags & 16 else "T5"
+    terms = flags & 17 if flags & 17 else flags   # prefetch2: no first
+    fold = flags & 14
+    return dict(
+        terms=ptxas_numbers(ptxas.get(f"{t} terms<{width},{terms}>")),
+        fold=ptxas_numbers(ptxas.get(f"T5/T6 fold<{fold}>")),
+        first_design=ptxas_numbers(ptxas.get(f"{t}<{width},{flags}>")))
+
+
+def micro_floor_redesign(torch, ptxas, probes):
+    """T5's six variants and T6's three widths on the redesign
+    (csrc/micro_floor_sm90.cuh) against the first design at the tool's
+    sizes: bit for bit, within FLOOR_RTOL of the plain version, both
+    designs timed in the turns first, new, new, first (CUDA events around
+    a call, median of TOOL_REPS, and CUDA-graph replays), the CSR without
+    the padding's no-op steps, ptxas (no stack frame in the redesign's
+    kernels, or the verdict fails); T5 base and prefetch2 and T6 width 128
+    split into phase A alone, phase B alone and tile 0's segment alone,
+    their bounds (phase group 10's, ``probes``) and shares; T6's library
+    composite. Returns the kernels-row numbers and the verdict."""
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch.tools import micro_floor as mf
+    from streetunveiler_torch.tools import timing
+    cuda_lib.reset_launch_counts()
+    t_start = time.perf_counter()
+    replayed = collections.Counter()
+    rec = mf.make_input()
+    tile_of, chunk_of, first, n_real = mf.visit_arrays(device="cuda")
+    n_tiles, vcap = mf.N_TILES, tile_of.numel()
+    lines, ok = {}, True
+
+    def times(f):
+        return dict(event_ms=timing.median_ms(f, TOOL_REPS),
+                    device_ms=graph_ms(torch, f, replayed))
+
+    def turns(call_first, call_new):
+        """Both timings' mean of each design's two turns."""
+        out = {}
+        for kind, timer in (("event_ms",
+                             lambda f: timing.median_ms(f, TOOL_REPS)),
+                            ("device_ms",
+                             lambda f: graph_ms(torch, f, replayed))):
+            t = {"first": [], "new": []}
+            for which in ("first", "new", "new", "first"):
+                t[which].append(timer(call_first if which == "first"
+                                      else call_new))
+            out[kind] = statistics.mean(t["new"])
+            out[kind + "_first_design"] = statistics.mean(t["first"])
+            out[kind + "_runs"] = t
+        return out
+
+    def split(call, variant, width, csr, n_pos, steps_args):
+        """Phase A alone, phase B alone (on phase A's terms), and both on
+        tile 0's segment alone (a CSR of one output block: its positions,
+        its one output block stored), then each phase of that alone, by
+        events and graph replays."""
+        def phase(which, c, work, n_blocks=n_tiles):
+            return mf._redesign_phase(which, variant, rec, c, n_blocks, work,
+                                      *steps_args, sblock=width)
+        work = mf.work_buffer(n_pos, "cuda")
+        phase("terms", csr, work)
+        n0 = int(csr[1][1])
+        seg0 = (csr[0][:n0].contiguous(),
+                torch.tensor([0, n0], dtype=torch.int32, device="cuda"),
+                torch.zeros(1, dtype=torch.int32, device="cuda"))
+        work0 = mf.work_buffer(n0, "cuda")
+        phase("terms", seg0, work0, 1)
+        parts = dict(
+            terms=lambda: phase("terms", csr, work),
+            fold=lambda: phase("fold", csr, work),
+            segment0=lambda: call(seg0, n_blocks=1),
+            segment0_terms=lambda: phase("terms", seg0, work0, 1),
+            segment0_fold=lambda: phase("fold", seg0, work0, 1))
+        return {k: times(f) for k, f in parts.items()} | dict(
+            segment0_positions=n0)
+
+    cases = [(v, 128) for v in mf.VARIANTS] + [
+        (f"linear_sb{sb}", sb) for sb in mf.SBLOCKS]
+    for name, width in cases:
+        linear = name.startswith("linear")
+        if linear:
+            tile_map = mf.linear_tile_map(rec.shape[1] // width, n_tiles,
+                                          "cuda")
+            csr = mf.step_csr(tile_map, n_tiles, segment_order=True)
+            real = None
+            variant, steps_args = "linear", (None, None)
+
+            def call(c, design="redesign", n_blocks=n_tiles):
+                return (mf.micro_floor_linear_cuda(width, rec, tile_map,
+                                                   n_blocks, c, design),)
+            want = (mf.micro_floor_linear_plain(width, rec, tile_map,
+                                                n_tiles),)
+            csr_fn = lambda: mf.step_csr(tile_map, n_tiles,
+                                         segment_order=True)
+        else:
+            va = (name, rec, tile_of, chunk_of, first, n_tiles)
+            csr = mf.visit_csr(*va, segment_order=True)
+            real = mf.visit_csr(*va, real_only=True, segment_order=True)
+            variant, steps_args = name, (chunk_of, first)
+
+            def call(c, design="redesign", n_blocks=n_tiles):
+                return mf.micro_floor_visit_cuda(*va[:5], n_blocks, c,
+                                                 design)
+            want = mf.micro_floor_visit_plain(*va)
+            csr_fn = lambda: mf.visit_csr(*va, segment_order=True)
+        steps = csr[0].numel()
+        new = call(csr)
+        old = call(csr[:2], design="first")
+        torch.cuda.synchronize()
+        errs = [floor_err(torch, g, w) for g, w in zip(new, want)]
+        equal = len(new) == len(old) and all(
+            torch.equal(a, b) for a, b in zip(new, old))
+        line = dict(
+            steps=steps, bit_equal_first_design=equal,
+            max_rel_err_vs_plain=max(r for _, r in errs),
+            exact_where_zero=all(z for z, _ in errs),
+            max_abs_err=max(float((g - w).abs().max())
+                            for g, w in zip(new, want)))
+        c_ok = equal and all(z and r <= FLOOR_RTOL for z, r in errs)
+        if real is not None:
+            real_out = call(real)
+            line["bit_equal_real_steps"] = all(
+                torch.equal(a, b) for a, b in zip(new, real_out))
+            c_ok = c_ok and line["bit_equal_real_steps"]
+            del real_out
+        del new, old, want
+        line.update(turns(lambda: call(csr[:2], design="first"),
+                          lambda: call(csr)))
+        line["ns_per_step"] = line["device_ms"] * 1e6 / steps
+        line["csr_ms"] = timing.median_ms(csr_fn, TOOL_REPS)
+        if real is not None:
+            line["real_steps"] = real[0].numel()
+            line["real_steps_only"] = times(lambda: call(real))
+            line["real_steps_only_first_design"] = times(
+                lambda: call(real[:2], design="first"))
+        if name in ("base", "prefetch2", "linear_sb128"):
+            line["split"] = split(call, variant, width, csr, steps,
+                                  steps_args)
+        line["ptxas"] = floor_ptxas(ptxas, name, width)
+        line["within_tolerance"] = c_ok
+        lines[name] = line
+        ok = ok and c_ok
+    # T6's library composite at each width: the three calls a user would
+    # write (block sums, index_add_ into the tiles, the broadcast); index_add_
+    # sums a tile's terms by atomics, so it is a time, not a reference
+    for sb in mf.SBLOCKS:
+        tile_map = mf.linear_tile_map(rec.shape[1] // sb, n_tiles, "cuda")
+
+        def composite():
+            t = rec.view(mf.REC, -1, sb).sum((0, 2)) * 1e-30
+            acc = torch.zeros(n_tiles, device="cuda").index_add_(
+                0, tile_map, t)
+            return acc[:, None, None].expand(-1, mf.PIX, mf.CH).contiguous()
+        lines[f"linear_sb{sb}"]["composite_ms"] = timing.median_ms(
+            composite, TOOL_REPS)
+    t5, t6 = probes["T5"], probes["T6"]
+    for name, row in (("base", t5), ("linear_sb128", t6)):
+        line = lines[name]
+        line.update(bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                    share_of_bound=row["bound_ms"] / line["device_ms"],
+                    share_of_bound_event=row["bound_ms"] / line["event_ms"],
+                    share_of_bound_first_design=row["bound_ms"]
+                    / line["device_ms_first_design"],
+                    half_bound_met=line["device_ms"] <= 2 * row["bound_ms"],
+                    half_bound_met_event=line["event_ms"]
+                    <= 2 * row["bound_ms"])
+    no_stack = all(
+        p is not None and p["stack_frame"] == 0
+        for l in lines.values()
+        for k, p in l["ptxas"].items() if k != "first_design")
+    ok = ok and no_stack
+    emit("micro_floor_redesign", steps=vcap, real_visits=n_real,
+         tiles=n_tiles, chunks=mf.N_CHUNKS, cases=lines,
+         tolerance=FLOOR_RTOL, no_stack_frame=no_stack,
+         within_tolerance=ok,
+         note="first design = csrc/micro_floor.cu floor_walk, redesign = "
+              "csrc/micro_floor_sm90.cuh (phase A floor_terms, phase B "
+              "floor_fold); event_ms: CUDA events around one call (the "
+              f"wrapper's host path included), median of {TOOL_REPS}; "
+              "device_ms: 20 calls in a CUDA graph, the median replay "
+              "(graph_ms); each the mean of two turns in the turns first, "
+              "new, new, first; the CSR built beforehand (csr_ms: the "
+              "redesign's, with the segment order); share_of_bound on "
+              "device_ms; bounds: phase group 10's (T5 base 354 MB, T6 "
+              "width 128 291 MB of bytes); composite_ms: three library "
+              "calls, not one")
+    torch.cuda.synchronize()
+    launches = {k: cuda_lib.launch_counts[k] + replayed[k]
+                for k in ("micro_floor_visit", "micro_floor_linear")}
+    emit("micro_floor_redesign_summary",
+         seconds=time.perf_counter() - t_start, tool_launches=launches,
+         within_tolerance=ok)
+    b, l128 = lines["base"], lines["linear_sb128"]
+
+    def row(line):
+        return dict(ms=line["device_ms"],
+                    ms_first_design=line["device_ms_first_design"],
+                    event_ms=line["event_ms"],
+                    event_ms_first_design=line["event_ms_first_design"],
+                    share_of_bound=line["share_of_bound"],
+                    max_abs_err=line["max_abs_err"])
+    return dict(ok=ok, launches=launches,
+                t5=dict(row(b), ms_real_steps=b["real_steps_only"][
+                    "device_ms"], csr_ms=b["csr_ms"]),
+                t6=dict(row(l128), composite_ms=l128["composite_ms"]))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2884,8 +3239,14 @@ def main():
     # ---- 7. the training slice at full width, the late phase, then the
     # training CLI without and with the late phase
     bg, gt, gt_sem = ground_truth(torch, state, cam, cap)
+    # the late phase starts from a copy of the street state taken before
+    # the training phases update its parameters in place: their steps
+    # scatter the surfel gradients by atomics, so the state they leave,
+    # and with it the inputs of every *_late_full_width check, would
+    # differ from run to run
+    late_state = state_copy(state)
     k2, train_launches = train_phases(torch, state, cam, cap, bg, gt, gt_sem)
-    late = late_phases(torch, state, cam, cap, bg, gt, gt_sem)
+    late = late_phases(torch, late_state, cam, cap, bg, gt, gt_sem)
     bench_fwd_bwd(torch, state, cam)
     train_scene_synthetic(torch)
     train_scene_synthetic(torch, late=True)
@@ -2936,6 +3297,12 @@ def main():
                              "plain version or with the production K1, or "
                              "T4's redesign differs from its first design or "
                              "its plain version")
+
+    # ---- 15. T5 and T6 redesigned, against their first design
+    t56 = micro_floor_redesign(torch, ptxas, probes)
+    if not t56["ok"]:
+        raise AssertionError("T5/T6's redesign differs from its first design "
+                             "or its plain version")
 
     # ---- 8. kernels; launches are those of the training main path, and
     # of the late path for the gated variants
@@ -3045,11 +3412,20 @@ def main():
     # 12's, its tool_launches groups 10 and 12's
     probes["T9"].update(probe_redesign["t9"])
     probes["T9"]["tool_launches"] += probe_redesign["launches"]["mmt3"]
+    # T5's and T6's ms and ms_first_design are phase group 15's device
+    # times (CUDA-graph replays; event_ms beside them brackets the
+    # wrapper's host path too), as are their share of the bound and
+    # max_abs_err (the redesign; T6's composite_ms three library calls),
+    # their tool_launches groups 10 and 15's
+    probes["T5"].update(t56["t5"])
+    probes["T5"]["tool_launches"] += t56["launches"]["micro_floor_visit"]
+    probes["T6"].update(t56["t6"])
+    probes["T6"]["tool_launches"] += t56["launches"]["micro_floor_linear"]
     for key, name, source, replaces in (
             ("T5", "T5 micro_floor visit-stream floor",
-             csrc + "micro_floor.cu", "tools/micro_floor.py:115"),
-            ("T6", "T6 micro_floor linear walk", csrc + "micro_floor.cu",
-             "tools/micro_floor.py:149"),
+             csrc + "micro_floor_sm90.cuh", "tools/micro_floor.py:115"),
+            ("T6", "T6 micro_floor linear walk",
+             csrc + "micro_floor_sm90.cuh", "tools/micro_floor.py:149"),
             ("T7", "T7 probe_compose4 identity of a stack",
              csrc + "identity.cu", "tools/probe_compose4.py:51"),
             ("T8", "T8 probe_tax identity", csrc + "identity.cu",
@@ -3064,7 +3440,10 @@ def main():
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             **{k: r[k] for k in ("ms_real_steps", "csr_ms",
-                                 "ms_first_design", "launch_floor_ms")
+                                 "ms_first_design", "event_ms",
+                                 "event_ms_first_design", "share_of_bound",
+                                 "composite_ms", "launch_floor_ms",
+                                 "vs_clone")
                if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,8 @@
-// T5 and T6 — the per-step floors of tools/micro_floor.py on an H100.
+// T5 and T6 — the per-step floors of tools/micro_floor.py on an H100:
+// their first design (`su_micro_floor_first`) and the C interface of both
+// designs (`su_micro_floor` runs the redesign, micro_floor_sm90.cuh, which
+// also holds the constants, flags and variants the two share).
+//
 //
 // Replaces the two Pallas kernels of tools/micro_floor.py: the visit-stream
 // floor (`build_visit` :60, kernel `kern` :67-105, launched at :115) and
@@ -40,7 +44,7 @@
 // reads: the scratch is written through a volatile pointer so that each
 // step's store stays, as the TPU's VMEM store did.
 //
-// Design: one thread block per output block walks its steps, which the
+// The first design: one thread block per output block walks its steps, which the
 // wrapper lists in stream order as a CSR (a stable sort of the steps by
 // block, as the port's binning does for K1). Tile 0's steps need not be
 // contiguous in the stream (prefetch2 puts its padding steps at the end),
@@ -62,28 +66,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "micro_floor_sm90.cuh"
+
 namespace {
 
-constexpr int kRec = 24;          // record rows summed per step
-constexpr int kPix = 512;         // output block: 512 x 12 f32
-constexpr int kCh = 12;
+using namespace su_floor;
+
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBatch = 64;        // steps per batch (4 per warp)
-constexpr int kScratchW = 8;      // scratch [512, 8], as the TPU's
-
-enum Flags {
-  kFirst = 1,      // read first[]: zero at > 0, add at >= 0
-  kScratch = 2,    // scratch[p][0] *= 0.999 at every add
-  kAlldone = 4,    // the add is gated by scratch[0][1] > 1.5
-  kTwoOut = 8,     // a second output, zeroed only
-  kLinear = 16,    // step v reads lane block v (T6)
-};
-
-enum Variant {
-  kBase = 0, kAlldoneV, kOneOut, kStaticOut, kNoScratch, kPrefetch2,
-  kLinearV, kNumVariants
-};
 
 template <int W, int F>
 __global__ void __launch_bounds__(kThreads)
@@ -182,12 +173,13 @@ cudaError_t launch(const float* rec, long long lanes, const int* order,
 // element written. variant: 0 base, 1 alldone, 2 one_out, 3 static_out,
 // 4 no_scratch, 5 prefetch2 (sblock 128), 6 linear (sblock 128, 256 or
 // 512). lanes must be a multiple of sblock. Returns cudaGetLastError().
-extern "C" int su_micro_floor(int variant, int sblock, const float* rec,
-                              long long lanes, const int* order,
-                              const int* offsets, int n_blocks,
-                              const int* chunk_of, const int* first,
-                              float* out0, float* out1, int device,
-                              void* stream) {
+// The first design.
+extern "C" int su_micro_floor_first(int variant, int sblock, const float* rec,
+                                    long long lanes, const int* order,
+                                    const int* offsets, int n_blocks,
+                                    const int* chunk_of, const int* first,
+                                    float* out0, float* out1, int device,
+                                    void* stream) {
   if (variant < 0 || variant >= kNumVariants || n_blocks < 1 ||
       lanes < sblock || lanes % sblock != 0 ||
       (variant != kLinearV && sblock != 128) ||
@@ -200,12 +192,12 @@ extern "C" int su_micro_floor(int variant, int sblock, const float* rec,
                                  float*, float*, cudaStream_t);
   Launch fn = nullptr;
   switch (variant) {
-    case kBase: fn = launch<128, kFirst | kScratch | kTwoOut>; break;
-    case kAlldoneV: fn = launch<128, kFirst | kScratch | kAlldone>; break;
+    case kBase: fn = launch<128, variant_flags(kBase)>; break;
+    case kAlldoneV: fn = launch<128, variant_flags(kAlldoneV)>; break;
     case kOneOut:
-    case kStaticOut: fn = launch<128, kFirst | kScratch>; break;
-    case kNoScratch: fn = launch<128, kFirst>; break;
-    case kPrefetch2: fn = launch<128, kScratch>; break;
+    case kStaticOut: fn = launch<128, variant_flags(kOneOut)>; break;
+    case kNoScratch: fn = launch<128, variant_flags(kNoScratch)>; break;
+    case kPrefetch2: fn = launch<128, variant_flags(kPrefetch2)>; break;
     default:
       fn = sblock == 128   ? launch<128, kLinear>
            : sblock == 256 ? launch<256, kLinear>
@@ -215,4 +207,37 @@ extern "C" int su_micro_floor(int variant, int sblock, const float* rec,
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return (int)fn(rec, lanes, order, offsets, n_blocks, chunk_of, first, out0,
                  out1, (cudaStream_t)stream);
+}
+
+// The same function by the redesign (micro_floor_sm90.cuh): the first
+// design's arguments, and seg_order [n_blocks] int32 (the order in which
+// phase B takes the output blocks, a permutation); n_pos = offsets[n_blocks],
+// the CSR's positions; work, the scratch of the two phases, 16-byte
+// aligned: term f32 then op uint8, each n_pos rounded up to 16 long (5
+// bytes a position). phases: su_floor::Phases, both (kBothPhases) or one
+// alone (kFold reads the terms and ops that kTerms left in work).
+extern "C" int su_micro_floor(int variant, int sblock, const float* rec,
+                              long long lanes, const int* order,
+                              const int* offsets, const int* seg_order,
+                              int n_blocks, int n_pos, const int* chunk_of,
+                              const int* first, void* work, float* out0,
+                              float* out1, int phases, int device,
+                              void* stream) {
+  if (variant < 0 || variant >= kNumVariants || n_blocks < 1 || n_pos < 0 ||
+      lanes < sblock || lanes % sblock != 0 ||
+      (variant != kLinearV && sblock != 128) ||
+      (variant == kLinearV && sblock != 128 && sblock != 256 &&
+       sblock != 512) ||
+      (variant == kBase && out1 == nullptr) || phases < 1 ||
+      phases > kBothPhases || (uintptr_t)work % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  float* term = static_cast<float*>(work);
+  unsigned char* op =
+      static_cast<unsigned char*>(work) + 4 * (size_t)((n_pos + 15) & ~15);
+  return (int)su_floor90::run(variant, sblock, rec, lanes, order, offsets,
+                              seg_order, n_blocks, n_pos, chunk_of, first,
+                              term, op, out0, out1, phases,
+                              (cudaStream_t)stream);
 }

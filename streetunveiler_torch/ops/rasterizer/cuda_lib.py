@@ -190,9 +190,15 @@ def load_library() -> ctypes.CDLL:
                 getattr(lib, name).argtypes = [i32, vp, ctypes.c_longlong,
                                                i32, vp, i32, vp]
                 getattr(lib, name).restype = i32
-            lib.su_micro_floor.argtypes = [i32, i32, vp, ctypes.c_longlong,
-                                           vp, vp, i32, vp, vp, vp, vp, i32,
-                                           vp]
+            # T5/T6: the redesign (su_micro_floor) takes the segment order,
+            # the positions, its scratch and the phases to run
+            lib.su_micro_floor_first.argtypes = [
+                i32, i32, vp, ctypes.c_longlong, vp, vp, i32, vp, vp, vp, vp,
+                i32, vp]
+            lib.su_micro_floor_first.restype = i32
+            lib.su_micro_floor.argtypes = [
+                i32, i32, vp, ctypes.c_longlong, vp, vp, vp, i32, i32, vp, vp,
+                vp, vp, vp, i32, i32, vp]
             lib.su_micro_floor.restype = i32
             lib.su_identity.argtypes = [vp, vp, ctypes.c_longlong, i32, vp]
             lib.su_identity.restype = i32

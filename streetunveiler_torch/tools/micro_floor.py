@@ -29,12 +29,24 @@ which only ever holds zeros: it computes ``one_out``'s function, as do
 every step v, into zeroed blocks. Each block holds one value: its terms
 folded in f32, in stream order, after its last zeroing.
 
+The kernel has two designs (``DESIGNS``): ``redesign`` (the default,
+``csrc/micro_floor_sm90.cuh``: phase A sums each adding step's chunk,
+a warp a position of the CSR across the card, phase B folds each output
+block's terms in stream order, a warp a block, the longest segments
+first, skipping no-op steps 512 at a time, then stores; bit for bit with
+the first design) and ``first`` (``csrc/micro_floor.cu``'s
+``floor_walk``: a thread block per output block walks its steps). The
+redesign walks a CSR with the segment order
+(``step_csr(..., segment_order=True)``); the private
+``_redesign_phase`` runs one of its phases alone, to time them apart.
+
 ``micro_floor_visit``/``micro_floor_linear`` run the plain PyTorch
 version on a CPU tensor and the kernel on a CUDA tensor. Run on the card:
-``python -m streetunveiler_torch.tools.micro_floor [--device cuda]``
-times every variant and width at the tool's sizes (rec [24, 14,080·128]
-from a seed on the device) and prints ms and ns per step; ``--device cpu``
-runs the plain versions at 64 chunks, 16 tiles and 64 steps.
+``python -m streetunveiler_torch.tools.micro_floor [--device cuda]
+[--design first]`` times every variant and width at the tool's sizes (rec
+[24, 14,080·128] from a seed on the device) and prints ms and ns per
+step; ``--device cpu`` runs the plain versions at 64 chunks, 16 tiles and
+64 steps.
 """
 
 from __future__ import annotations
@@ -45,7 +57,7 @@ import json
 import numpy as np
 import torch
 
-from streetunveiler_torch.ops.rasterizer import cuda_lib
+from streetunveiler_torch.ops.rasterizer import cuda_lib, tiles
 
 REC, S, PIX, CH = 24, 128, 512, 12
 N_CHUNKS, N_TILES, VCAP = 14080, 4800, 18880
@@ -56,6 +68,9 @@ VARIANTS = ("base", "alldone", "one_out", "static_out", "no_scratch",
 SBLOCKS = (128, 256, 512)
 _INDEX = {v: i for i, v in enumerate(VARIANTS)}
 _LINEAR = len(VARIANTS)     # su_micro_floor's variant index of T6
+DESIGNS = ("redesign", "first")
+# the redesign's phases (csrc/micro_floor_sm90.cuh, su_floor::Phases)
+_PHASES = {"terms": 1, "fold": 2, "both": 3}
 
 
 def make_visits(n_dup_chunks, n_tiles, vcap):
@@ -98,6 +113,11 @@ def _check_variant(variant):
 def _check_sblock(sblock):
     if sblock not in SBLOCKS:
         raise ValueError(f"sblock must be one of {SBLOCKS}, got {sblock!r}")
+
+
+def _check_design(design):
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
 
 
 def _check_rec(recT, width):
@@ -190,10 +210,12 @@ def micro_floor_linear_plain(sblock, recT, tile_map, n_tiles):
     return _broadcast(_fold(tile_map.long(), term, ~ones, ones, n_tiles))
 
 
-def step_csr(block, n_blocks, keep=None):
+def step_csr(block, n_blocks, keep=None, segment_order=False):
     """The steps listed by output block in stream order (a stable sort, as
     the binning's CSR for K1): (order [steps], offsets [n_blocks + 1]),
-    int32. With ``keep`` (bool [steps]) only the kept steps are listed."""
+    int32. With ``keep`` (bool [steps]) only the kept steps are listed.
+    With ``segment_order`` a third entry, the output blocks longest
+    segment first (``tiles.tile_order``), which the redesign walks."""
     steps = None
     if keep is not None:
         steps = torch.nonzero(keep).flatten()
@@ -203,32 +225,48 @@ def step_csr(block, n_blocks, keep=None):
         order = steps[order]
     offsets = torch.searchsorted(
         s, torch.arange(n_blocks + 1, dtype=block.dtype,
-                        device=block.device), side="left")
-    return order.to(torch.int32), offsets.to(torch.int32)
+                        device=block.device), side="left").to(torch.int32)
+    if segment_order:
+        return order.to(torch.int32), offsets, tiles.tile_order(offsets)
+    return order.to(torch.int32), offsets
 
 
 def visit_csr(variant, recT, tile_of, chunk_of, first, n_tiles,
-              real_only=False):
+              real_only=False, segment_order=False):
     """Check the visit arrays and build the CSR a T5 variant walks: every
     step, or with ``real_only`` only the steps that zero or add (the
     padding's no-op steps, all on tile 0, left out; the outputs are the
-    same)."""
+    same); with ``segment_order`` as ``step_csr``'s."""
     _check_variant(variant)
     _check_visits(recT, tile_of, chunk_of, first, n_tiles)
     block, zero, add = _visit_steps(variant, tile_of, first)
-    return step_csr(block, n_tiles, (zero | add) if real_only else None)
+    return step_csr(block, n_tiles, (zero | add) if real_only else None,
+                    segment_order)
+
+
+def work_buffer(n_pos, device):
+    """The redesign's scratch for a CSR of ``n_pos`` positions: uint8, the
+    terms (f32) then the op bytes, each rounded up to 16 positions (phase B
+    reads 16 a lane)."""
+    return torch.empty(5 * (-(-n_pos // 16) * 16), dtype=torch.uint8,
+                       device=device)
 
 
 def _launch(variant_index, sblock, recT, csr, n_blocks, chunk_of, first,
-            two_out):
+            two_out, design, phase="both", work=None):
+    _check_design(design)
     if recT.device.type != "cuda":
         raise ValueError(f"recT must be a CUDA tensor, got {recT.device}")
-    order, offsets = csr
+    if design == "redesign" and len(csr) != 3:
+        raise ValueError("the redesign walks a CSR with its segment order: "
+                         "step_csr(..., segment_order=True)")
+    order, offsets = csr[:2]
     if offsets.shape != (n_blocks + 1,) or any(
             t.dtype != torch.int32 or t.device != recT.device
-            or not t.is_contiguous() for t in (order, offsets)):
-        raise ValueError("csr must be int32 (order, offsets [n_blocks + 1]) "
-                         "on rec's device")
+            or not t.is_contiguous() for t in csr) or (
+            design == "redesign" and csr[2].shape != (n_blocks,)):
+        raise ValueError("csr must be int32 (order, offsets [n_blocks + 1]"
+                         "[, segment order [n_blocks]]) on rec's device")
     lib = cuda_lib.load_library()
     out0 = torch.empty((n_blocks, PIX, CH), dtype=torch.float32,
                        device=recT.device)
@@ -236,33 +274,53 @@ def _launch(variant_index, sblock, recT, csr, n_blocks, chunk_of, first,
     index = recT.device.index if recT.device.index is not None \
         else torch.cuda.current_device()
     ptr = lambda t: None if t is None else t.data_ptr()
-    rc = lib.su_micro_floor(
-        variant_index, sblock, recT.data_ptr(), recT.shape[1],
-        order.data_ptr(), offsets.data_ptr(), n_blocks, ptr(chunk_of),
-        ptr(first), out0.data_ptr(), ptr(out1), index,
-        torch.cuda.current_stream(recT.device).cuda_stream)
-    cuda_lib.check(rc, "micro_floor launch")
+    stream = torch.cuda.current_stream(recT.device).cuda_stream
+    if design == "first":
+        rc = lib.su_micro_floor_first(
+            variant_index, sblock, recT.data_ptr(), recT.shape[1],
+            order.data_ptr(), offsets.data_ptr(), n_blocks, ptr(chunk_of),
+            ptr(first), out0.data_ptr(), ptr(out1), index, stream)
+    else:
+        n_pos = order.numel()
+        if work is None:
+            work = work_buffer(n_pos, recT.device)
+        elif (work.dtype != torch.uint8 or work.device != recT.device
+              or work.numel() < 5 * (-(-n_pos // 16) * 16)):
+            raise ValueError("work must be work_buffer(n_pos) on rec's "
+                             "device")
+        rc = lib.su_micro_floor(
+            variant_index, sblock, recT.data_ptr(), recT.shape[1],
+            order.data_ptr(), offsets.data_ptr(), csr[2].data_ptr(),
+            n_blocks, n_pos, ptr(chunk_of), ptr(first), work.data_ptr(),
+            out0.data_ptr(), ptr(out1), _PHASES[phase], index, stream)
+    cuda_lib.check(rc, f"micro_floor launch ({design})")
     return (out0, out1) if two_out else (out0,)
 
 
 def micro_floor_visit_cuda(variant, recT, tile_of, chunk_of, first,
-                           n_tiles, csr=None):
-    """Launch the T5 kernel (``csrc/micro_floor.cu``) on the current
-    stream. ``csr`` is ``visit_csr``'s result, built here when None."""
+                           n_tiles, csr=None, design="redesign"):
+    """Launch the T5 kernel on the current stream: its ``redesign``
+    (``csrc/micro_floor_sm90.cuh``) or its ``first`` design
+    (``csrc/micro_floor.cu``). ``csr`` is ``visit_csr``'s result (the
+    redesign's with ``segment_order``), built here when None."""
     _check_variant(variant)
+    _check_design(design)
     if csr is None:
-        csr = visit_csr(variant, recT, tile_of, chunk_of, first, n_tiles)
+        csr = visit_csr(variant, recT, tile_of, chunk_of, first, n_tiles,
+                        segment_order=design == "redesign")
     out = _launch(_INDEX[variant], S, recT, csr, n_tiles, chunk_of,
-                  first, variant == "base")
+                  first, variant == "base", design)
     cuda_lib.launch_counts["micro_floor_visit"] += 1
     return out
 
 
-def micro_floor_linear_cuda(sblock, recT, tile_map, n_tiles, csr=None):
-    """Launch the T6 kernel (``csrc/micro_floor.cu``) on the current
-    stream. ``csr`` is ``step_csr(tile_map, n_tiles)``, built here when
-    None."""
+def micro_floor_linear_cuda(sblock, recT, tile_map, n_tiles, csr=None,
+                            design="redesign"):
+    """Launch the T6 kernel on the current stream, by ``design`` as
+    ``micro_floor_visit_cuda``. ``csr`` is ``step_csr(tile_map, n_tiles)``
+    (with ``segment_order`` for the redesign), built here when None."""
     _check_sblock(sblock)
+    _check_design(design)
     _check_rec(recT, sblock)
     if tile_map.shape != (recT.shape[1] // sblock,) \
             or tile_map.dtype != torch.int32:
@@ -271,24 +329,60 @@ def micro_floor_linear_cuda(sblock, recT, tile_map, n_tiles, csr=None):
         lo, hi = torch.stack([tile_map.min(), tile_map.max()]).tolist()
         if lo < 0 or hi >= n_tiles:
             raise ValueError("tile_map out of range")
-        csr = step_csr(tile_map, n_tiles)
-    (out,) = _launch(_LINEAR, sblock, recT, csr, n_tiles, None, None, False)
+        csr = step_csr(tile_map, n_tiles, segment_order=design == "redesign")
+    (out,) = _launch(_LINEAR, sblock, recT, csr, n_tiles, None, None, False,
+                     design)
     cuda_lib.launch_counts["micro_floor_linear"] += 1
     return out
 
 
-def micro_floor_visit(variant, recT, tile_of, chunk_of, first, n_tiles):
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    fn = micro_floor_visit_plain if recT.device.type == "cpu" \
-        else micro_floor_visit_cuda
-    return fn(variant, recT, tile_of, chunk_of, first, n_tiles)
+def _redesign_phase(phase, variant, recT, csr, n_blocks, work,
+                    chunk_of=None, first=None, sblock=S):
+    """One phase of the redesign alone, to time the phases apart:
+    ``terms`` (phase A: the CSR's terms and op bytes into ``work``) or
+    ``fold`` (phase B on what phase A left in ``work``; returns the
+    outputs, which ``terms`` leaves unwritten and does not return).
+    ``variant`` is a T5 variant or ``linear`` (T6 at width ``sblock``);
+    ``csr`` has the segment order; ``work`` is ``work_buffer``'s,
+    allocated by the caller."""
+    if phase not in ("terms", "fold"):
+        raise ValueError(f"phase must be 'terms' or 'fold', got {phase!r}")
+    if work is None:
+        raise ValueError("a phase alone needs the caller's work_buffer")
+    if variant == "linear":
+        _check_sblock(sblock)
+        _check_rec(recT, sblock)
+        index, key = _LINEAR, "micro_floor_linear"
+    else:
+        _check_variant(variant)
+        _check_rec(recT, S)
+        index, key, sblock = _INDEX[variant], "micro_floor_visit", S
+    out = _launch(index, sblock, recT, csr, n_blocks, chunk_of, first,
+                  variant == "base", "redesign", phase, work)
+    cuda_lib.launch_counts[key] += 1
+    return out if phase == "fold" else None
 
 
-def micro_floor_linear(sblock, recT, tile_map, n_tiles):
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    fn = micro_floor_linear_plain if recT.device.type == "cpu" \
-        else micro_floor_linear_cuda
-    return fn(sblock, recT, tile_map, n_tiles)
+def micro_floor_visit(variant, recT, tile_of, chunk_of, first, n_tiles,
+                      design="redesign"):
+    """The kernel (``design``) on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    _check_design(design)
+    if recT.device.type == "cpu":
+        return micro_floor_visit_plain(variant, recT, tile_of, chunk_of,
+                                       first, n_tiles)
+    return micro_floor_visit_cuda(variant, recT, tile_of, chunk_of, first,
+                                  n_tiles, design=design)
+
+
+def micro_floor_linear(sblock, recT, tile_map, n_tiles, design="redesign"):
+    """The kernel (``design``) on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    _check_design(design)
+    if recT.device.type == "cpu":
+        return micro_floor_linear_plain(sblock, recT, tile_map, n_tiles)
+    return micro_floor_linear_cuda(sblock, recT, tile_map, n_tiles,
+                                   design=design)
 
 
 def make_input(n_chunks=N_CHUNKS, device="cuda"):
@@ -307,52 +401,57 @@ def visit_arrays(n_chunks=N_CHUNKS, n_tiles=N_TILES, vcap=VCAP,
                  for a in (tile_of, chunk_of, first)) + (n,)
 
 
-def run(recT, visits, n_tiles, reps=10):
+def run(recT, visits, n_tiles, reps=10, design="redesign"):
     """Every variant and width once through the dispatching entry points,
-    then, on the card and with ``reps`` > 0, each timed with its CSR built
-    beforehand (median of ``reps`` CUDA-event times): ``ms`` walks every
-    step, ``ms_real_steps`` a CSR without the padding's no-op steps (which
-    the block of tile 0 otherwise walks alone, after the others), and
-    ``csr_ms`` is the CSR's build. Returns one dict per variant and
-    width."""
+    then, on the card and with ``reps`` > 0, each timed by ``design`` with
+    its CSR built beforehand (median of ``reps`` CUDA-event times): ``ms``
+    walks every step, ``ms_real_steps`` a CSR without the padding's no-op
+    steps (which the first design's block of tile 0 walks alone, after the
+    others), and ``csr_ms`` is the CSR's build. Returns one dict per
+    variant and width."""
     from streetunveiler_torch.tools import timing
+    _check_design(design)
     tile_of, chunk_of, first, n_real = visits
     vcap = tile_of.numel()
     cuda = recT.device.type == "cuda" and reps > 0
+    ordered = design == "redesign"
     lines = []
     for variant in VARIANTS:
         out = micro_floor_visit(variant, recT, tile_of, chunk_of, first,
-                                n_tiles)
+                                n_tiles, design)
         line = dict(variant=variant, steps=vcap, real_visits=n_real,
                     checksum=float(sum(o.double().sum() for o in out)))
         if cuda:
-            csr = visit_csr(variant, recT, tile_of, chunk_of, first, n_tiles)
+            def csr_of(real_only=False):
+                return visit_csr(variant, recT, tile_of, chunk_of, first,
+                                 n_tiles, real_only, ordered)
+            csr, real = csr_of(), csr_of(True)
             ms = timing.median_ms(lambda: micro_floor_visit_cuda(
-                variant, recT, tile_of, chunk_of, first, n_tiles, csr), reps)
-            real = visit_csr(variant, recT, tile_of, chunk_of, first,
-                             n_tiles, real_only=True)
+                variant, recT, tile_of, chunk_of, first, n_tiles, csr,
+                design), reps)
             line.update(ms=ms, ns_per_step=ms * 1e6 / vcap,
                         real_steps=int(real[1][-1]),
                         ms_real_steps=timing.median_ms(
                             lambda: micro_floor_visit_cuda(
                                 variant, recT, tile_of, chunk_of, first,
-                                n_tiles, real), reps),
-                        csr_ms=timing.median_ms(lambda: visit_csr(
-                            variant, recT, tile_of, chunk_of, first,
-                            n_tiles), reps))
+                                n_tiles, real, design), reps),
+                        csr_ms=timing.median_ms(csr_of, reps))
         lines.append(line)
     for sb in SBLOCKS:
         grid = recT.shape[1] // sb
         tile_map = linear_tile_map(grid, n_tiles, recT.device)
-        out = micro_floor_linear(sb, recT, tile_map, n_tiles)
+        out = micro_floor_linear(sb, recT, tile_map, n_tiles, design)
         line = dict(variant=f"linear_sb{sb}", steps=grid,
                     checksum=float(out.double().sum()))
         if cuda:
-            csr = step_csr(tile_map, n_tiles)
+            csr = step_csr(tile_map, n_tiles, segment_order=ordered)
             ms = timing.median_ms(lambda: micro_floor_linear_cuda(
-                sb, recT, tile_map, n_tiles, csr), reps)
+                sb, recT, tile_map, n_tiles, csr, design), reps)
             line.update(ms=ms, ns_per_step=ms * 1e6 / grid)
         lines.append(line)
+    if cuda:
+        for line in lines:
+            line["design"] = design
     return lines
 
 
@@ -361,6 +460,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--design", choices=DESIGNS, default="redesign",
+                    help="the kernel's design on the card")
     args = ap.parse_args(argv)
     cpu = torch.device(args.device).type == "cpu"
     if not cpu:
@@ -370,7 +471,7 @@ def main(argv=None):
         else (N_CHUNKS, N_TILES, VCAP)
     recT = make_input(n_chunks, device=args.device)
     visits = visit_arrays(n_chunks, n_tiles, vcap, args.device)
-    for line in run(recT, visits, n_tiles, args.reps):
+    for line in run(recT, visits, n_tiles, args.reps, args.design):
         print(json.dumps(line), flush=True)
 
 
