@@ -85,7 +85,21 @@ drives the two paths of the port on the 300k-surfel street scene at
   their plain versions in all six variants and three widths, both designs
   timed in turns, the phases and tile 0's segment timed apart, ptxas
   (no stack frame in the redesign's kernels), the bounds of phase group
-  10 and their shares, T6's library composite (``micro_floor_redesign``).
+  10 and their shares, T6's library composite (``micro_floor_redesign``);
+* T7/T8's copy redesigned (phase group 16): what a copy costs in a CUDA
+  graph against ``clone``'s memcpy node, split (an empty kernel, the
+  first design's body on other grids, the redesign with and without its
+  programmatic launch, the launch floor; the graph nodes of each,
+  ``identity_gap_split``), then ``csrc/identity_sm90.cuh`` bit for bit
+  against its first design and the input at many lengths, both designs
+  and ``clone`` in turns at the probes' sizes, ptxas and the bound
+  (``identity_redesign``).
+
+The late full-width checks (gated K1/K2, T1 and T2 of both designs) run
+on two late streams: the street state as built (``*_late_full_width``)
+and a state trained by the training phases' untimed steps under the
+deterministic mode (``trained_state``, ``*_late_trained_full_width``),
+both the same in every run.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last two lines are the kernels table and
@@ -256,6 +270,8 @@ def check_blend(torch, acc, lk, want_acc, want_lk, nq, label, n_gates=0,
     emit(label, nq=nq, n_gates=n_gates, lk_mismatch_frac=mismatch,
          max_abs_err_per_channel=errs, distortion_max_abs_err=dist_err,
          median_frac_over_tol=med_far, median_max_rel_err=med_rel,
+         worst_pixel=worst_pixel(torch, (acc[..., :ch]
+                                         - want_acc[..., :ch]).abs(), same),
          gated=gated, **fields, within_tolerance=ok)
     if not ok:
         raise AssertionError(f"{label}: K1 disagrees with its plain version")
@@ -514,11 +530,13 @@ def k2_vs_plain(torch, kernel, state, cam, gt, gt_sem, bg, cap, opt, nq):
                          surfel_grad_runs=runs), args=a)
 
 
-def gated_vs_plain(torch, kernel, loss_fn, case):
+def gated_vs_plain(torch, kernel, loss_fn, case, save_failed=False):
     """Gated K1 and K2 against their plain versions on one loss's blend:
     ``loss_fn()`` → (loss, grads) runs the loss and its gradients, its
     backward through K2 and through the plain version (``grad_runs``). K1's
-    inputs are the forward's records (the captured arguments)."""
+    inputs are the forward's records (the captured arguments). With
+    ``save_failed``, a failed check first saves the stream
+    (``save_stream``)."""
     from streetunveiler_torch.ops.rasterizer import tiles
     # the captured records, detached: the plain versions below build no
     # graph
@@ -541,18 +559,25 @@ def gated_vs_plain(torch, kernel, loss_fn, case):
     ops = k1_ops(counts)
     k1_bound, k1_by = bound(nbytes, ops)
     first_bound = bound(nbytes, k1_ops(counts, "evaluated"))[0]
-    k1_err = check_blend(
-        torch, acc, lk, want_acc, want_lk, nq, f"k1_vs_plain_gated_{case}",
-        n_gates, evaluated_pairs=counts[EVALUATED],
-        evaluated_pairs_first_design=counts["evaluated"],
-        ungated_evaluated_pairs=main_evaluated,
-        kept_pairs=counts["kept"], gated_kept_pairs=counts["gated_kept"],
-        duplicates=int(off[-1]), ms=ms, plain_ms=plain_ms, bytes=nbytes,
-        operations=ops, bound_ms=k1_bound,
-        bound_ms_first_design_pairs=first_bound)
-    k2 = check_k2(torch, kernel, a, g_k2, g_plain,
-                  f"k2_vs_plain_gated_{case}", reps=10, loss=float(loss),
-                  surfel_grad_runs=runs)
+    try:
+        k1_err = check_blend(
+            torch, acc, lk, want_acc, want_lk, nq,
+            f"k1_vs_plain_gated_{case}", n_gates,
+            evaluated_pairs=counts[EVALUATED],
+            evaluated_pairs_first_design=counts["evaluated"],
+            ungated_evaluated_pairs=main_evaluated,
+            kept_pairs=counts["kept"], gated_kept_pairs=counts["gated_kept"],
+            duplicates=int(off[-1]), ms=ms, plain_ms=plain_ms, bytes=nbytes,
+            operations=ops, bound_ms=k1_bound,
+            bound_ms_first_design_pairs=first_bound)
+        k2 = check_k2(torch, kernel, a, g_k2, g_plain,
+                      f"k2_vs_plain_gated_{case}", reps=10, loss=float(loss),
+                      surfel_grad_runs=runs)
+    except AssertionError:
+        if save_failed:
+            emit(f"gated_{case}_stream", saved=save_stream(
+                torch, f"gated_{case}", a))
+        raise
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=k1_bound, bound_by=k1_by,
                 bound_ms_first_design_pairs=first_bound,
                 max_abs_err=k1_err, counts=counts,
@@ -768,14 +793,98 @@ def step_stages(torch, state, cam, cap, bg, gt, opt, it, gt_sem=None,
     return stage, full
 
 
+def untimed_steps(torch, state, cam, cap, bg, gt, gt_sem, opt):
+    """The full-width training steps before ``train_phases``' timed ones:
+    TRAIN_STEPS + 1 steps from TRAIN_ITER0, the first one semantic
+    (nq=12), with the schedule's loss, real Adam updates and densification
+    statistics. ``train_step`` updates ``state``'s parameters in place.
+    Returns (state, opt_state, losses, overflow)."""
+    from streetunveiler_torch.train.step import (bin_step, init_optimizer,
+                                                 train_step)
+    opt_state = init_optimizer(state)
+    losses, overflow = [], False
+    for i in range(TRAIN_STEPS + 1):
+        b = bin_step(state, cam, duplicate_capacity=cap, device="cuda")
+        state, opt_state, _, _, m = train_step(
+            state, opt_state, cam, gt, bg, TRAIN_ITER0 + i, opt,
+            duplicate_capacity=cap, binning=b,
+            gt_semantic=gt_sem if i == 0 else None, device="cuda")
+        losses.append(float(m["loss"]))
+        overflow = overflow or bool(m["overflow"])
+    return state, opt_state, losses, overflow
+
+
+def densify_full_capacity(torch, state, opt_state, opt):
+    """densify_and_prune at full capacity with a seeded generator, the
+    gradient threshold at the 90th percentile of the nonzero accumulated
+    screen gradients, so that thousands of surfels want to clone or split:
+    nothing can be placed, so no split parent may be pruned. Returns
+    (state, opt_state, threshold, surfels at or above it)."""
+    from streetunveiler_torch.models.gaussians import densify_and_prune
+    grads = state.grad_accum / state.denom.clamp(min=1)
+    threshold = float(torch.quantile(grads[grads > 0], 0.9))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    d_state, mu, nu = densify_and_prune(
+        state, opt_state.mu, opt_state.nu, threshold, opt.opacity_cull,
+        None, generator=gen, percent_dense=opt.percent_dense)
+    return (d_state, opt_state._replace(mu=mu, nu=nu), threshold,
+            int((grads >= threshold).sum()))
+
+
+def deterministic_trained_state(torch, state, cam, cap, bg, gt, gt_sem):
+    """A trained state that repeats from run to run, for the late checks:
+    ``untimed_steps`` and ``densify_full_capacity`` on a ``state_copy`` of
+    ``state``, all under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` (the previous setting restored after), so that the
+    record scatter's ``index_add_`` sums each surfel's duplicates in a
+    fixed order and not by atomics. The timed phases keep the default
+    mode. Emits ``trained_state`` (each step's loss, the operations that
+    warned of having no deterministic form, an f64 sum of each parameter)
+    and returns the state."""
+    import dataclasses
+    import warnings
+    from streetunveiler_torch.config import OptimizationParams
+    opt = OptimizationParams()
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    t_start = time.perf_counter()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            trained, opt_state, losses, overflow = untimed_steps(
+                torch, state_copy(state), cam, cap, bg, gt, gt_sem, opt)
+            trained, opt_state, threshold, high = densify_full_capacity(
+                torch, trained, opt_state, opt)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    finite = finite_state(torch, trained, opt_state)
+    alive = int(trained.num_alive)
+    emit("trained_state", steps=TRAIN_STEPS + 1, iteration0=TRAIN_ITER0,
+         first_step_nq=12, losses=losses, overflow=overflow, finite=finite,
+         grad_threshold=threshold, high_gradient=high, alive=alive,
+         param_sums={f.name: float(getattr(trained.params, f.name).double()
+                                   .sum())
+                     for f in dataclasses.fields(trained.params)},
+         nondeterministic_ops=sorted({
+             str(w.message).splitlines()[0][:200] for w in caught
+             if "deterministic" in str(w.message)}),
+         seconds=time.perf_counter() - t_start)
+    if not (finite and not overflow and alive == trained.capacity):
+        raise AssertionError("the deterministic training steps went "
+                             "non-finite, overflowed or changed the surfel "
+                             "count")
+    return trained
+
+
 def train_phases(torch, state, cam, cap, bg, gt, gt_sem):
     """The training slice at full width; returns what the kernels line
     needs of it."""
     from streetunveiler_torch.config import OptimizationParams
-    from streetunveiler_torch.models.gaussians import densify_and_prune
     from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel
-    from streetunveiler_torch.train.step import (bin_step, init_optimizer,
-                                                 train_step)
+    from streetunveiler_torch.train.step import bin_step, train_step
 
     # ---- K2 against its plain version, nq 6 and 12, every loss term on
     opt_all = OptimizationParams(normal_consist_from_iter=0,
@@ -788,18 +897,9 @@ def train_phases(torch, state, cam, cap, bg, gt, gt_sem):
     # TRAIN_STEPS photometric steps, with the schedule's loss at
     # TRAIN_ITER0, real Adam updates and densification statistics
     opt = OptimizationParams()
-    opt_state = init_optimizer(state)
     cuda_lib.reset_launch_counts()
-    losses, overflow = [], False
-    for i in range(TRAIN_STEPS + 1):
-        it = TRAIN_ITER0 + i
-        b = bin_step(state, cam, duplicate_capacity=cap, device="cuda")
-        state, opt_state, _, _, m = train_step(
-            state, opt_state, cam, gt, bg, it, opt, duplicate_capacity=cap,
-            binning=b, gt_semantic=gt_sem if i == 0 else None,
-            device="cuda")
-        losses.append(float(m["loss"]))
-        overflow = overflow or bool(m["overflow"])
+    state, opt_state, losses, overflow = untimed_steps(
+        torch, state, cam, cap, bg, gt, gt_sem, opt)
     torch.cuda.synchronize()
     launches = dict(cuda_lib.launch_counts)
     steps = TRAIN_STEPS + 1
@@ -817,23 +917,11 @@ def train_phases(torch, state, cam, cap, bg, gt, gt_sem):
         raise AssertionError("the full-width training steps failed their "
                              "checks")
 
-    # densify and prune at full capacity, with the gradient threshold at
-    # the 90th percentile of the nonzero accumulated screen gradients, so
-    # that thousands of surfels want to clone or split: nothing can be
-    # placed, so no split parent may be pruned
     n_alive = int(state.num_alive)
-    grads = state.grad_accum / state.denom.clamp(min=1)
-    threshold = float(torch.quantile(grads[grads > 0], 0.9))
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    d_state, mu, nu = densify_and_prune(
-        state, opt_state.mu, opt_state.nu, threshold, opt.opacity_cull,
-        None, generator=gen, percent_dense=opt.percent_dense)
-    high = int((grads >= threshold).sum())
+    d_state, d_opt, threshold, high = densify_full_capacity(
+        torch, state, opt_state, opt)
     d_ok = (int(d_state.num_alive) == n_alive == state.capacity
-            and high > 0
-            and finite_state(torch, d_state, opt_state._replace(mu=mu,
-                                                                nu=nu)))
+            and high > 0 and finite_state(torch, d_state, d_opt))
     emit("densify_full_capacity", capacity=state.capacity,
          alive_before=n_alive, alive_after=int(d_state.num_alive),
          grad_threshold=threshold, high_gradient=high, finite=d_ok)
@@ -882,12 +970,14 @@ def train_phases(torch, state, cam, cap, bg, gt, gt_sem):
     return k2, launches
 
 
-def late_phases(torch, state, cam, cap, bg, gt, gt_sem):
+def late_phases(torch, state, cam, cap, bg, gt, gt_sem, trained):
     """The late-phase step at full width on ``state`` (the street state as
     built, the same in every run): gated K1/K2 against their plain
-    versions (the late loss, and a dense-occlusion stack), then
+    versions (the late loss on ``state`` and on ``trained``, the
+    deterministically trained state, and a dense-occlusion stack), then
     TRAIN_STEPS + 1 late steps with the sky, their time by stage and
-    their profile. Returns what the kernels line needs of it."""
+    their profile. Returns what the kernels line needs of it, with the
+    captured late streams of both states (``args``, ``trained_args``)."""
     from streetunveiler_torch.config import OptimizationParams
     from streetunveiler_torch.models.sky import init_sky
     from streetunveiler_torch.ops.rasterizer import (RasterizeSettings,
@@ -899,15 +989,21 @@ def late_phases(torch, state, cam, cap, bg, gt, gt_sem):
     sky = init_sky(torch.Generator().manual_seed(0), device="cuda")
 
     # ---- gated K1 and K2 against their plain versions
-    def late_loss():
-        loss, g, _ = loss_grads(torch, state, cam, gt, bg, opt, LATE_ITER0,
-                                cap, gt_sem, True, sky)
-        return loss, g
-    k1_full, k2_full, a = gated_vs_plain(torch, kernel, late_loss,
+    def late_loss(st):
+        def loss_fn():
+            loss, g, _ = loss_grads(torch, st, cam, gt, bg, opt, LATE_ITER0,
+                                    cap, gt_sem, True, sky)
+            return loss, g
+        return loss_fn
+    k1_full, k2_full, a = gated_vs_plain(torch, kernel, late_loss(state),
                                          "full_width")
-    if (a[8], a[9]) != (12, G_LATE):
-        raise AssertionError(f"the late loss ran the blend at nq={a[8]}, "
-                             f"G={a[9]}")
+    k1_tr, k2_tr, a_tr = gated_vs_plain(torch, kernel, late_loss(trained),
+                                        "late_trained_full_width",
+                                        save_failed=True)
+    for x in (a, a_tr):
+        if (x[8], x[9]) != (12, G_LATE):
+            raise AssertionError(f"the late loss ran the blend at "
+                                 f"nq={x[8]}, G={x[9]}")
     k1_dense, k2_dense, _ = gated_vs_plain(
         torch, kernel, dense_gated_loss(torch, rasterize, RasterizeSettings),
         "dense")
@@ -976,11 +1072,13 @@ def late_phases(torch, state, cam, cap, bg, gt, gt_sem):
               "forward_render, left out of the sum); sky_fwd_bwd is "
               "render_sky and its backward; each stage alone in CUDA events")
     emit("train_late_profile", **profile_frames(torch, step, 3))
-    return dict(k1=dict(k1_full, max_abs_err=max(k1_full["max_abs_err"],
-                                                 k1_dense["max_abs_err"])),
-                k2=dict(k2_full, max_abs_err=max(k2_full["max_abs_err"],
-                                                 k2_dense["max_abs_err"])),
-                launches=launches, args=a)
+    return dict(k1=dict(k1_full, max_abs_err=max(
+                    k1_full["max_abs_err"], k1_tr["max_abs_err"],
+                    k1_dense["max_abs_err"])),
+                k2=dict(k2_full, max_abs_err=max(
+                    k2_full["max_abs_err"], k2_tr["max_abs_err"],
+                    k2_dense["max_abs_err"])),
+                launches=launches, args=a, trained_args=a_tr)
 
 
 def bench_fwd_bwd(torch, state, cam, iters=10):
@@ -1035,7 +1133,9 @@ def ptxas_summary(log):
     of the measurement tools (T1<G,variant>, T2<nq,G,variant>, T3 and T4
     kernels, T5/T6<width,flags> of csrc/micro_floor.cu and its
     redesign's ``T5/T6 terms<width,flags>`` and ``T5/T6 fold<flags>``,
-    the T7/T8 copy, T9; T3's, T4's and T9's redesigns as ``*_sm90``, T1 and T2 on K1's
+    the T7/T8 copy's first design ``T7/T8 copy<256>``, redesign ``T7/T8
+    copy sm90`` and the gap split's ``copy<1024>`` and ``empty``, T9;
+    T3's, T4's and T9's redesigns as ``*_sm90``, T1 and T2 on K1's
     and K2's H100 design as ``T1 sm90<nq,G,variant>`` and ``T2
     sm90<nq,G,variant>``), named by the translation unit that built
     them."""
@@ -1089,8 +1189,15 @@ def ptxas_summary(log):
                 name = f"T{6 if flags & 16 else 5} terms<{w},{flags}>"
             elif fold:
                 name = f"T5/T6 fold<{ints(fold)[0]}>"
-            elif "copy_int4" in line or "mmt3_kernel" in line:
-                name = "T7/T8 copy" if "copy_int4" in line else "T9"
+            elif "copy_int4" in line:
+                # the first design (256) and the split's body (1024)
+                name = "T7/T8 copy<" + re.search(r"copy_int4ILi(\d+)E",
+                                                 line).group(1) + ">"
+            elif "copy_vec" in line or "empty_kernel" in line:
+                name = ("T7/T8 copy sm90" if "copy_vec" in line
+                        else "T7/T8 empty")
+            elif "mmt3_kernel" in line:
+                name = "T9"
             elif "mmt3_sm90_kernel" in line:
                 name = "T9 sm90"
             elif probe:
@@ -1280,21 +1387,42 @@ def rel_err(got, want, dims, floor):
     return float(((got - want).abs().amax(dim=dims) / scale).max())
 
 
-def t1_vs_plain(torch, bf, k1_args, design="first"):
-    """Every T1 variant of ``design`` against its plain version (the
-    design's skip rule) on ``k1_args``: lk,
+def worst_pixel(torch, err, same):
+    """(row, column) of the largest entry of ``err`` [H, W, C] among the
+    pixels where ``same`` [H, W] holds, and its channel."""
+    masked = torch.where(same[..., None], err, torch.zeros_like(err))
+    flat = int(masked.reshape(-1).argmax())
+    c = err.shape[2]
+    return dict(row=flat // c // err.shape[1], col=flat // c % err.shape[1],
+                channel=flat % c)
+
+
+def save_stream(torch, label, args):
+    """``torch.save`` of a check's stream (its captured arguments) under
+    the git-ignored build directory, for a check that failed."""
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+    path = os.path.join(cuda_lib.BUILD_DIR, f"{label}.pt")
+    torch.save([t.cpu() if torch.is_tensor(t) else t for t in args], path)
+    return os.path.relpath(path, ROOT)
+
+
+def t1_vs_plain(torch, bf, k1_args, design="first", variants=None):
+    """Every T1 variant of ``design`` (or those of ``variants``) against
+    its plain version (the design's skip rule) on ``k1_args``: lk,
     every lk_g and the median (within TOL_MEDIAN) on all but FLIP_FRACTION
     of pixels, each channel within its tolerance over the pixels where they
     all agree (mismatch_frac counts the rest). Each entry also holds the
     median flips, the channel of the largest error, the largest absolute
-    error and the pairs the plain version counts: the design's, and the
+    error, the pixel where the error relative to its channel's scale is
+    largest, and the pairs the plain version counts: the design's, and the
     first design's (every pair a live chain reaches)."""
     from streetunveiler_torch.ops.rasterizer import tiles
     nq, n_gates = k1_args[5], k1_args[6]
     ch = nq + 6
     order = tiles.tile_order(k1_args[1]) if design == "sm90" else None
     out, ok = {}, True
-    for v in bf.VARIANTS:
+    for v in variants or bf.VARIANTS:
         acc, lk = bf.bisect_forward_cuda(v, *k1_args, design=design,
                                          tile_order=order)
         want_acc, want_lk, count = bf.bisect_forward_plain(
@@ -1322,10 +1450,11 @@ def t1_vs_plain(torch, bf, k1_args, design="first"):
         v_ok = (mism <= FLIP_FRACTION and err <= tol
                 and bool(torch.isfinite(acc).all())
                 and (lk is None) == (want_lk is None))
+        worst = worst_pixel(torch, (acc - want_acc).abs() / scale, same)
         out[v] = dict(mismatch_frac=mism,
                       median_flip_frac=float(flips.float().mean()),
                       max_rel_err=err, worst_channel=int(per_channel.argmax()),
-                      tolerance=tol,
+                      worst_pixel=worst, tolerance=tol,
                       max_abs_err=float((acc[same] - want_acc[same]).abs()
                                         .max()),
                       evaluated_pairs=count["evaluated"],
@@ -1336,16 +1465,16 @@ def t1_vs_plain(torch, bf, k1_args, design="first"):
     return out, ok
 
 
-def t2_vs_plain(torch, bb, a, design="first"):
-    """Every T2 variant of ``design`` against its plain version (the
-    design's batch and skip rule) on the arguments ``a`` of a backward:
-    per record row 0..9+nq, the largest error over the row's largest
-    gradient (ROW_TOL_REL, as K2)."""
+def t2_vs_plain(torch, bb, a, design="first", variants=None):
+    """Every T2 variant of ``design`` (or those of ``variants``) against
+    its plain version (the design's batch and skip rule) on the arguments
+    ``a`` of a backward: per record row 0..9+nq, the largest error over
+    the row's largest gradient (ROW_TOL_REL, as K2)."""
     from streetunveiler_torch.ops.rasterizer import tiles
     nq = a[8]
     order = tiles.tile_order(a[1]) if design == "sm90" else None
     out, ok = {}, True
-    for v in bb.VARIANTS:
+    for v in variants or bb.VARIANTS:
         got = bb.bisect_backward_cuda(v, *a, design=design, tile_order=order)
         want = bb.bisect_backward_plain(v, *a, **bb.DESIGNS[design])
         torch.cuda.synchronize()
@@ -1360,14 +1489,48 @@ def t2_vs_plain(torch, bb, a, design="first"):
     return out, ok
 
 
-def tool_phases(torch, photo_args, late_args, k2_photo):
+# The variants of the late checks on the trained state's stream: every T1
+# variant of the first design (one of them once failed on a state trained
+# through atomics), `full` and `full_nolkmax` of the sm90 design, T2's
+# `full` in both designs; a gated plain variant costs seconds at full
+# width, and chip_smoke.py has to stay inside the card's time limit
+TRAINED_T1 = {"first": None, "sm90": ("full", "full_nolkmax")}
+TRAINED_T2 = ("full",)
+
+
+def late_trained_check(torch, a, tool, design):
+    """T1's (``tool`` "fwd") or T2's ("bwd") variants of ``design``
+    (TRAINED_T1, TRAINED_T2) against their plain versions on ``a``, the
+    late stream of the deterministically trained state
+    (``deterministic_trained_state``), in the line
+    ``bisect_{tool}[_sm90]_vs_plain_late_trained_full_width``; a failed
+    check saves the stream first (``save_stream``). Returns the
+    verdict."""
+    from streetunveiler_torch.tools import bisect_bwd, bisect_fwd
+    label = (f"bisect_{tool}{'' if design == 'first' else '_sm90'}"
+             f"_vs_plain_late_trained_full_width")
+    nq, n_gates = a[8], a[9]
+    if tool == "fwd":
+        res, ok = t1_vs_plain(torch, bisect_fwd, a[:5] + (nq, n_gates),
+                              design, TRAINED_T1[design])
+    else:
+        res, ok = t2_vs_plain(torch, bisect_bwd, a, design, TRAINED_T2)
+    emit(label, nq=nq, n_gates=n_gates, duplicates=int(a[1][-1]),
+         variants=res, within_tolerance=ok)
+    if not ok:
+        emit(f"{label}_stream", saved=save_stream(torch, label, a))
+    return ok
+
+
+def tool_phases(torch, photo_args, late_args, k2_photo, trained_args):
     """Phase group 9: the measurement tools T1-T4. Every T1/T2 variant
     against its plain version on the dense stack and at full width, T1/T2
     ``full`` bit for bit against the production K1/K2, and every variant
     and mode timed at full width. ``photo_args``/``late_args`` are the
     captured arguments of the photometric (nq 6) and late (nq 12, G 5)
-    backward at full width; ``k2_photo`` K2's line on the former. Returns
-    the kernels-line rows."""
+    backward at full width; ``k2_photo`` K2's line on the former;
+    ``trained_args`` the late backward's on the trained state
+    (``late_trained_check``). Returns the kernels-line rows."""
     from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
     from streetunveiler_torch.tools import (bisect_bwd, bisect_fwd,
                                             micro_prefix, micro_reduce,
@@ -1477,6 +1640,10 @@ def tool_phases(torch, photo_args, late_args, k2_photo):
                               bound_ms=k2_photo["bound_ms"],
                               bound_by=k2_photo["bound_by"],
                               max_abs_err=b_res["full"]["max_abs_err"])
+
+    for tool in ("fwd", "bwd"):
+        all_ok = late_trained_check(torch, trained_args, tool,
+                                    "first") and all_ok
 
     # ---- T3: micro_reduce at the TPU tool's size
     x = micro_reduce.make_input()
@@ -1649,12 +1816,22 @@ def graph_turns(torch, a, b, replayed, rounds=8, calls=20):
     between CUDA events in the turns a, b, b, a for ``rounds`` rounds:
     (times of a, times of b) per call, 2·rounds each. Launches as
     ``capture_graph`` counts them."""
-    graphs = [capture_graph(torch, fn, replayed, calls, 2 * rounds)
-              for fn in (a, b)]
-    times = ([], [])
+    times = graph_rounds(torch, dict(a=a, b=b), replayed, rounds, calls)
+    return times["a"], times["b"]
+
+
+def graph_rounds(torch, fns, replayed, rounds=8, calls=20):
+    """``graph_turns`` for any number of functions: each of ``fns`` (a
+    dict) captured as ``calls`` calls in one CUDA graph, the graphs'
+    replays timed in the order of ``fns`` and back for ``rounds`` rounds:
+    {name: times per call}, 2·rounds each."""
+    graphs = {k: capture_graph(torch, fn, replayed, calls, 2 * rounds)
+              for k, fn in fns.items()}
+    names = list(graphs)
+    times = {k: [] for k in names}
     for _ in range(rounds):
-        for which in (0, 1, 1, 0):
-            times[which].append(replay_ms(torch, graphs[which], calls))
+        for k in names + names[::-1]:
+            times[k].append(replay_ms(torch, graphs[k], calls))
     return times
 
 
@@ -1952,6 +2129,7 @@ def probe_phases(torch):
     for r in rows.values():
         r["launches"] = path[r["key"]]
         r["tool_launches"] = launches[r["key"]]
+    rows["identity_inputs"] = (off, surf)
     return rows
 
 
@@ -2439,7 +2617,8 @@ def k2_split(variants):
                 not_split=full - variants["floor"] - sum(parts.values()))
 
 
-def bisect_bwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas):
+def bisect_bwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas,
+                           trained_args):
     """T2 on K2's H100 design (csrc/bisect_bwd_sm90*.cu): every variant
     against its plain version (batch 64, the exact pair skip) on the
     dense stack at G 0 and 5; ``full`` bit for bit against the production
@@ -2447,8 +2626,10 @@ def bisect_bwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas):
     (12, 5) on the captured full-width streams; every variant timed in the
     turns first, new, new, first beside its first-design counterpart
     (median of TOOL_REPS CUDA-event times, dgrad zeroed outside the timed
-    launches); gated K2's time split by both designs' variants. Returns
-    the kernels-row numbers and the verdict."""
+    launches); gated K2's time split by both designs' variants; the late
+    check on the trained state's stream ``trained_args``
+    (``late_trained_check``). Returns the kernels-row numbers and the
+    verdict."""
     from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
     from streetunveiler_torch.tools import bisect_bwd, street, timing
     cuda_lib.reset_launch_counts()
@@ -2511,6 +2692,7 @@ def bisect_bwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas):
                             same_registers_and_spills=same_regs,
                             variants=times)
         ok = ok and exact and same_regs
+    ok = late_trained_check(torch, trained_args, "bwd", "sm90") and ok
     late = forms["late"]["variants"]
     split = k2_split({v: late[v]["ms"] for v in late})
     split_first = k2_split({v: late[v]["ms_first_design"] for v in late})
@@ -2558,7 +2740,8 @@ def k1_split(variants):
                 not_split=full - variants["floor"] - sum(parts.values()))
 
 
-def bisect_fwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas):
+def bisect_fwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas,
+                           trained_args):
     """T1 on K1's H100 design (csrc/bisect_fwd_sm90*.cu): every variant
     against its plain version (the exact pair skip) on the dense stack at
     G 0 and 5 and at full width on the photometric and late streams;
@@ -2567,8 +2750,9 @@ def bisect_fwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas):
     full-width streams; every variant timed in the turns first, new, new,
     first beside its first-design counterpart (median of TOOL_REPS
     CUDA-event times), with both designs' evaluated pairs; gated K1's time
-    split by both designs' variants. Returns the kernels-row numbers and
-    the verdict."""
+    split by both designs' variants; the late check on the trained state's
+    stream ``trained_args`` (``late_trained_check``). Returns the
+    kernels-row numbers and the verdict."""
     from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
     from streetunveiler_torch.tools import bisect_fwd, street, timing
     cuda_lib.reset_launch_counts()
@@ -2643,6 +2827,7 @@ def bisect_fwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas):
                                 "bisect_fwd_sm90", nq, n_gates),
                             variants=times)
         ok = ok and exact and same_regs
+    ok = late_trained_check(torch, trained_args, "fwd", "sm90") and ok
     late = forms["late"]["variants"]
     split = k1_split({v: late[v]["ms"] for v in late})
     split_first = k1_split({v: late[v]["ms_first_design"] for v in late})
@@ -2996,6 +3181,183 @@ def micro_floor_redesign(torch, ptxas, probes):
                 t6=dict(row(l128), composite_ms=l128["composite_ms"]))
 
 
+# ---------------------------------------------------------------------------
+# Phase group 16: T7/T8's copy redesigned (csrc/identity_sm90.cuh) against
+# its first design and `clone`, and the split of what a copy costs in a
+# CUDA graph.
+
+# cudaGraphNodeType's names
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty", 6: "wait_event",
+                    7: "event_record", 10: "mem_alloc", 11: "mem_free"}
+
+
+def graph_nodes(torch, fn, calls=3):
+    """The nodes of ``calls`` calls of ``fn`` captured in a CUDA graph
+    (``su_graph_nodes``): each node's type with a kernel node's blocks
+    and threads or a memcpy node's bytes, and the edges' types."""
+    import ctypes
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    n = 64
+    types, info = (ctypes.c_int * n)(), (ctypes.c_longlong * (2 * n))()
+    edges, n_nodes, n_edges = (ctypes.c_int * n)(), ctypes.c_int(), \
+        ctypes.c_int()
+    rc = cuda_lib.load_library().su_graph_nodes(
+        graph.raw_cuda_graph(), n, ctypes.addressof(types),
+        ctypes.addressof(info), ctypes.addressof(n_nodes),
+        ctypes.addressof(edges), ctypes.addressof(n_edges))
+    cuda_lib.check(rc, "graph nodes")
+    nodes = []
+    for i in range(min(n_nodes.value, n)):
+        kind = GRAPH_NODE_TYPES.get(types[i], str(types[i]))
+        node = dict(type=kind)
+        if kind == "kernel":
+            node.update(blocks=info[2 * i], threads=info[2 * i + 1])
+        elif kind == "memcpy":
+            node.update(bytes=info[2 * i])
+        nodes.append(node)
+    del graph
+    return dict(nodes=nodes, edges=[
+        "programmatic" if edges[i] == 1 else "default"
+        for i in range(min(n_edges.value, n))])
+
+
+def identity_phases(torch, off, surf, ptxas):
+    """T7/T8's copy (phase group 16) on the street's padded tile_offsets
+    and sorted_surfel, the probes' sizes. ``identity_gap_split``: in a
+    CUDA graph of 20 calls, against ``clone`` in turns (``graph_turns``),
+    the first design, an empty kernel on its grid and on <<<1, 32>>>, its
+    body on one block and on the fewest blocks of 1,024 threads, the
+    redesign launched without and with its programmatic attribute, the
+    one-element ``fill_`` of ``launch_floor_ms``; and which graph nodes
+    ``clone`` and both designs become. ``identity_redesign``: both designs
+    bit for bit against each other and the input (what ``clone`` gives)
+    at every length of a list, the padded tile_offsets, sorted_surfel and
+    T7's stack of sorted_surfel and its reverse; both designs and
+    ``clone`` in turns (``graph_rounds``) at the three sizes; ptxas; the
+    bound. Returns the kernels-row numbers and the verdict."""
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch.tools import probe_compose4, probe_tax
+    cuda_lib.reset_launch_counts()
+    t_start = time.perf_counter()
+    replayed = collections.Counter()
+    pad = probe_tax.pad_lanes(off)
+    n4 = pad.numel() // 4
+    first_blocks = min(-(-n4 // 256), 1024)
+    fewest = -(-n4 // 1024)
+    one = torch.zeros(1, device="cuda")
+    split = dict(
+        first_design=lambda: probe_tax.copy_cuda(pad, design="first"),
+        empty_first_design_grid=lambda: probe_tax._split_launch(
+            "empty", pad, first_blocks, 256),
+        empty_1x32=lambda: probe_tax._split_launch("empty", pad, 1, 32),
+        first_body_1x256=lambda: probe_tax._split_launch(
+            "first_body", pad, 1, 256),
+        **{f"first_body_{fewest}x1024": lambda: probe_tax._split_launch(
+            "first_body", pad, fewest, 1024)},
+        redesign_plain_launch=lambda: probe_tax._split_launch(
+            "redesign_plain_launch", pad),
+        redesign=lambda: probe_tax.copy_cuda(pad),
+        fill_floor=lambda: one.fill_(1.0))
+    cand = {}
+    for name, fn in split.items():
+        kt, ct = graph_turns(torch, fn, pad.clone, replayed)
+        cand[name] = dict(ms=turns_summary(kt), clone_ms=turns_summary(ct),
+                          median_minus_clone=statistics.median(kt)
+                          - statistics.median(ct))
+    gap = cand["first_design"]["median_minus_clone"]
+    empty_gap = cand["empty_first_design_grid"]["median_minus_clone"]
+    nodes = {name: graph_nodes(torch, fn) for name, fn in (
+        ("clone", pad.clone), ("first_design", split["first_design"]),
+        ("redesign", split["redesign"]))}
+    emit("identity_gap_split", values=pad.numel(), bytes=4 * pad.numel(),
+         first_design_grid=[first_blocks, 256], candidates=cand,
+         graph_nodes=nodes, gap_ms=gap, empty_node_minus_clone_ms=empty_gap,
+         gap_is_node_type=empty_gap >= gap,
+         overlap_gain_ms=cand["redesign_plain_launch"]["ms"]["median"]
+         - cand["redesign"]["ms"]["median"],
+         note="each candidate and clone replayed in turns (graph_turns: 8 "
+              "rounds of candidate, clone, clone, candidate, 20 calls a "
+              "graph, ms a call); gap_ms: the first design's median minus "
+              "clone's; gap_is_node_type: the empty kernel on the first "
+              "design's grid alone is slower than clone by the whole gap; "
+              "overlap_gain_ms: the redesign's median launched without "
+              "minus with its programmatic attribute")
+
+    # ---- bits: every design against the other and the input
+    surf_pad = probe_tax.pad_lanes(surf)
+    stack = probe_compose4.stack_lanes(surf, surf.flip(0))
+    sizes = dict(tile_offsets=pad,
+                 t7_stack_tile_offsets=probe_compose4.stack_lanes(off),
+                 sorted_surfel=surf_pad, t7_stack=stack)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for m in (1, 2, 3, 4, 5, 76, 77, 1023, 1024, 1025, 4097):
+        sizes[f"n_{128 * m}"] = torch.randint(
+            -2 ** 31, 2 ** 31 - 1, (128 * m,), dtype=torch.int32,
+            device="cuda", generator=g)
+    bits, ok = {}, True
+    for name, x in sizes.items():
+        new = probe_tax.copy_cuda(x, "identity_stack"
+                                  if name.startswith("t7") else "identity")
+        first = probe_tax.copy_cuda(x, design="first")
+        torch.cuda.synchronize()
+        bits[name] = dict(redesign_vs_first=torch.equal(new, first),
+                          redesign_vs_clone=torch.equal(new, x.clone()),
+                          first_vs_clone=torch.equal(first, x))
+        ok = ok and all(bits[name].values())
+        del new, first
+
+    # ---- both designs and clone in turns, at the probes' sizes
+    sized = {}
+    for name in ("tile_offsets", "t7_stack_tile_offsets", "sorted_surfel",
+                 "t7_stack"):
+        x = sizes[name]
+        key = "identity_stack" if name.startswith("t7") else "identity"
+        t = graph_rounds(torch, dict(
+            first_design=lambda: probe_tax.copy_cuda(x, key, "first"),
+            redesign=lambda: probe_tax.copy_cuda(x, key),
+            clone=x.clone), replayed)
+        nbytes = 2 * 4 * x.numel()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        med = {k: statistics.median(v) for k, v in t.items()}
+        sized[name] = dict(
+            values=x.numel(), bytes=nbytes, bound_ms=bound_ms,
+            **{k: turns_summary(v) for k, v in t.items()},
+            redesign_no_slower_than_first=med["redesign"]
+            <= med["first_design"],
+            redesign_no_slower_than_clone=med["redesign"] <= med["clone"],
+            share_of_bound=bound_ms / med["redesign"])
+    regs = {k: ptxas.get(k) for k in ("T7/T8 copy<256>", "T7/T8 copy sm90",
+                                      "T7/T8 copy<1024>", "T7/T8 empty")}
+    torch.cuda.synchronize()
+    launches = {k: cuda_lib.launch_counts[k] + replayed[k]
+                for k in ("identity", "identity_stack")}
+    emit("identity_redesign", bit_exact=bits, sizes=sized, ptxas=regs,
+         tool_launches=launches, seconds=time.perf_counter() - t_start,
+         within_tolerance=ok,
+         note="both designs and clone captured as 20 calls a CUDA graph "
+              "each, replayed in the turns first, new, clone, clone, new, "
+              "first for 8 rounds (ms a call); bound: the values read and "
+              "written once over the HBM rate; t7_stack: sorted_surfel and "
+              "its reverse, one launch; t7_stack_tile_offsets: the stack of "
+              "tile_offsets alone, as the probes' path copies it")
+    return dict(ok=ok, launches=launches,
+                t8=dict(ms_first_design=sized["tile_offsets"][
+                    "first_design"]["median"]),
+                t7=dict(ms_first_design=sized["t7_stack_tile_offsets"][
+                    "first_design"]["median"]))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3245,14 +3607,20 @@ def main():
     # and with it the inputs of every *_late_full_width check, would
     # differ from run to run
     late_state = state_copy(state)
+    # and a trained one that repeats from run to run: the training phases'
+    # untimed steps under the deterministic mode, on another copy
+    trained = deterministic_trained_state(torch, state, cam, cap, bg, gt,
+                                          gt_sem)
     k2, train_launches = train_phases(torch, state, cam, cap, bg, gt, gt_sem)
-    late = late_phases(torch, late_state, cam, cap, bg, gt, gt_sem)
+    late = late_phases(torch, late_state, cam, cap, bg, gt, gt_sem, trained)
+    del trained
     bench_fwd_bwd(torch, state, cam)
     train_scene_synthetic(torch)
     train_scene_synthetic(torch, late=True)
 
     # ---- 9. the measurement tools
-    tools = tool_phases(torch, k2[6]["args"], late["args"], k2[6])
+    tools = tool_phases(torch, k2[6]["args"], late["args"], k2[6],
+                        late["trained_args"])
 
     # ---- 10. the probes T5-T9
     probes = probe_phases(torch)
@@ -3281,7 +3649,8 @@ def main():
               "alone on the street's inputs; parts_device_ms: CUDA-graph "
               "replays (graph_ms); bin_step = the step's binning stage")
     t2_sm90 = bisect_bwd_sm90_phases(torch, k2[6]["args"], k2[12]["args"],
-                                     late["args"], ptxas)
+                                     late["args"], ptxas,
+                                     late["trained_args"])
     if not (k3r["ok"] and t2_sm90["ok"]):
         raise AssertionError("K3's redesign differs from its first design or "
                              "its plain version, or T2 on K2's H100 design "
@@ -3290,7 +3659,8 @@ def main():
 
     # ---- 14. T1 on K1's H100 design, T4's redesign
     t1_sm90 = bisect_fwd_sm90_phases(torch, k2[6]["args"], k2[12]["args"],
-                                     late["args"], ptxas)
+                                     late["args"], ptxas,
+                                     late["trained_args"])
     t4r = micro_prefix_redesign(torch, ptxas)
     if not (t1_sm90["ok"] and t4r["ok"]):
         raise AssertionError("T1 on K1's H100 design disagrees with its "
@@ -3303,6 +3673,12 @@ def main():
     if not t56["ok"]:
         raise AssertionError("T5/T6's redesign differs from its first design "
                              "or its plain version")
+
+    # ---- 16. T7/T8's copy redesigned, against its first design and clone
+    t78 = identity_phases(torch, *probes.pop("identity_inputs"), ptxas)
+    if not t78["ok"]:
+        raise AssertionError("T7/T8's redesigned copy differs from its first "
+                             "design or from its input")
 
     # ---- 8. kernels; launches are those of the training main path, and
     # of the late path for the gated variants
@@ -3421,14 +3797,20 @@ def main():
     probes["T5"]["tool_launches"] += t56["launches"]["micro_floor_visit"]
     probes["T6"].update(t56["t6"])
     probes["T6"]["tool_launches"] += t56["launches"]["micro_floor_linear"]
+    # T7's and T8's ms_first_design are phase group 16's device times in
+    # turns, at the sizes of their ms (the padded tile_offsets, alone and
+    # as a stack of one), their tool_launches groups 10 and 16's
+    for key, name in (("T7", "identity_stack"), ("T8", "identity")):
+        probes[key].update(t78[key.lower()])
+        probes[key]["tool_launches"] += t78["launches"][name]
     for key, name, source, replaces in (
             ("T5", "T5 micro_floor visit-stream floor",
              csrc + "micro_floor_sm90.cuh", "tools/micro_floor.py:115"),
             ("T6", "T6 micro_floor linear walk",
              csrc + "micro_floor_sm90.cuh", "tools/micro_floor.py:149"),
             ("T7", "T7 probe_compose4 identity of a stack",
-             csrc + "identity.cu", "tools/probe_compose4.py:51"),
-            ("T8", "T8 probe_tax identity", csrc + "identity.cu",
+             csrc + "identity_sm90.cuh", "tools/probe_compose4.py:51"),
+            ("T8", "T8 probe_tax identity", csrc + "identity_sm90.cuh",
              "tools/probe_tax.py:75"),
             ("T9", "T9 probe_mmt3 split-precision contraction",
              csrc + "mmt3_sm90.cuh", "tools/probe_mmt3.py:56")):

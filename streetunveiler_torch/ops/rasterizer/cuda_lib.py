@@ -200,8 +200,18 @@ def load_library() -> ctypes.CDLL:
                 i32, i32, vp, ctypes.c_longlong, vp, vp, vp, i32, i32, vp, vp,
                 vp, vp, vp, i32, i32, vp]
             lib.su_micro_floor.restype = i32
-            lib.su_identity.argtypes = [vp, vp, ctypes.c_longlong, i32, vp]
-            lib.su_identity.restype = i32
+            # T7/T8: the redesign (su_identity) and the first design take
+            # the same arguments; su_identity_split and su_graph_nodes
+            # serve the measurement of a copy in a CUDA graph
+            for name in ("su_identity", "su_identity_first"):
+                getattr(lib, name).argtypes = [vp, vp, ctypes.c_longlong, i32,
+                                               vp]
+                getattr(lib, name).restype = i32
+            lib.su_identity_split.argtypes = [i32, i32, i32, vp, vp,
+                                              ctypes.c_longlong, i32, vp]
+            lib.su_identity_split.restype = i32
+            lib.su_graph_nodes.argtypes = [vp, i32, vp, vp, vp, vp, vp]
+            lib.su_graph_nodes.restype = i32
             for name in ("su_mmt3", "su_mmt3_first"):
                 getattr(lib, name).argtypes = [vp, vp, vp, vp, vp, vp, i32,
                                                vp]

@@ -6,6 +6,11 @@ Counterpart of ``tools/probe_tax.py``, whose Pallas identity
 kernel ``csrc/identity.cu``: ``identity_copy(x)`` pads the 1-D int32 x
 with zeros to [⌈n/128⌉, 128], copies it and returns its first n values,
 as the tool's does. Its plain version is a clone of the padded view.
+The copy has two designs with the same bits (``DESIGNS``): ``redesign``
+(the default, ``csrc/identity_sm90.cuh``: a grid that covers the values
+once, two 16-byte loads and stores a thread, launched programmatically so
+that its launch overlaps the kernel before it) and ``first`` (the first
+design, a grid-stride loop).
 
 The TPU's blend read seven visit arrays through scalar prefetch and ran
 30-45 ms slower when they were computed in the same program than when
@@ -42,6 +47,11 @@ from streetunveiler_torch.ops.rasterizer import cuda_lib
 LANES = 128
 VARIANTS = (("args", 1), ("dyn", 1), ("launder", 1), ("dyn", 2),
             ("args", 2))
+DESIGNS = ("redesign", "first")
+# su_identity_split's kinds: an empty kernel, the first design's body on a
+# grid of the caller's, the redesign launched without the programmatic
+# attribute
+SPLIT_KINDS = {"empty": 0, "first_body": 1, "redesign_plain_launch": 2}
 
 
 def pad_lanes(x):
@@ -58,24 +68,51 @@ def copy_plain(xp):
     return xp.clone()
 
 
-def copy_cuda(xp, key="identity"):
-    """Launch the copy kernel (``csrc/identity.cu``) on the current stream:
-    a new tensor equal to xp (int32, contiguous, a multiple of 128
-    values). ``key`` is the caller's entry of ``launch_counts``."""
+def _check_padded(xp):
     if xp.device.type != "cuda" or xp.dtype != torch.int32 \
             or not xp.is_contiguous() or xp.numel() % LANES \
             or xp.numel() == 0:
         raise ValueError("xp must be a contiguous int32 CUDA tensor of a "
                          f"multiple of {LANES} values, got "
                          f"{tuple(xp.shape)} {xp.dtype} on {xp.device}")
-    lib = cuda_lib.load_library()
-    out = torch.empty_like(xp)
     index = xp.device.index if xp.device.index is not None \
         else torch.cuda.current_device()
-    rc = lib.su_identity(xp.data_ptr(), out.data_ptr(), xp.numel(), index,
-                         torch.cuda.current_stream(xp.device).cuda_stream)
-    cuda_lib.check(rc, "identity launch")
+    return index, torch.cuda.current_stream(xp.device).cuda_stream
+
+
+def copy_cuda(xp, key="identity", design="redesign"):
+    """Launch the copy kernel of ``design`` (``csrc/identity.cu``) on the
+    current stream: a new tensor equal to xp (int32, contiguous, a
+    multiple of 128 values). ``key`` is the caller's entry of
+    ``launch_counts``."""
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
+    index, stream = _check_padded(xp)
+    lib = cuda_lib.load_library()
+    out = torch.empty_like(xp)
+    entry = lib.su_identity if design == "redesign" \
+        else lib.su_identity_first
+    rc = entry(xp.data_ptr(), out.data_ptr(), xp.numel(), index, stream)
+    cuda_lib.check(rc, f"identity launch ({design})")
     cuda_lib.launch_counts[key] += 1
+    return out
+
+
+def _split_launch(kind, xp, blocks=0, threads=0, key="identity"):
+    """One launch of ``su_identity_split``'s ``kind`` (SPLIT_KINDS) on the
+    padded xp, for the measurement of a copy in a CUDA graph: the empty
+    kernel and the first design's body on <<<blocks, threads>>>, the
+    redesign without its programmatic launch. Returns the copy (xp itself
+    for the empty kernel, which copies nothing); a copy counts under
+    ``key``."""
+    index, stream = _check_padded(xp)
+    out = xp if kind == "empty" else torch.empty_like(xp)
+    rc = cuda_lib.load_library().su_identity_split(
+        SPLIT_KINDS[kind], blocks, threads, xp.data_ptr(), out.data_ptr(),
+        xp.numel(), index, stream)
+    cuda_lib.check(rc, f"identity split launch ({kind})")
+    if kind != "empty":
+        cuda_lib.launch_counts[key] += 1
     return out
 
 
