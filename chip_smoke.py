@@ -222,8 +222,8 @@ def profile_frames(torch, frame, frames):
                      for name, (ms, n) in top])
 
 
-def check_blend(torch, acc, lk, want_acc, want_lk, nq, label, n_gates=0,
-                **fields):
+def check_blend(torch, acc, lk, want_acc, want_lk, nq, label, tiles_x,
+                n_gates=0, **fields):
     """K1 against its plain version: lk mismatch fraction, and per channel
     the max abs error over the pixels whose lk agrees; with gated chains
     the same per class over the pixels whose lk_g agrees (α_g, m1_g, m2_g
@@ -271,7 +271,8 @@ def check_blend(torch, acc, lk, want_acc, want_lk, nq, label, n_gates=0,
          max_abs_err_per_channel=errs, distortion_max_abs_err=dist_err,
          median_frac_over_tol=med_far, median_max_rel_err=med_rel,
          worst_pixel=worst_pixel(torch, (acc[..., :ch]
-                                         - want_acc[..., :ch]).abs(), same),
+                                         - want_acc[..., :ch]).abs(), same,
+                                 tiles_x),
          gated=gated, **fields, within_tolerance=ok)
     if not ok:
         raise AssertionError(f"{label}: K1 disagrees with its plain version")
@@ -562,7 +563,7 @@ def gated_vs_plain(torch, kernel, loss_fn, case, save_failed=False):
     try:
         k1_err = check_blend(
             torch, acc, lk, want_acc, want_lk, nq,
-            f"k1_vs_plain_gated_{case}", n_gates,
+            f"k1_vs_plain_gated_{case}", tx, n_gates,
             evaluated_pairs=counts[EVALUATED],
             evaluated_pairs_first_design=counts["evaluated"],
             ungated_evaluated_pairs=main_evaluated,
@@ -793,17 +794,18 @@ def step_stages(torch, state, cam, cap, bg, gt, opt, it, gt_sem=None,
     return stage, full
 
 
-def untimed_steps(torch, state, cam, cap, bg, gt, gt_sem, opt):
+def untimed_steps(torch, state, cam, cap, bg, gt, gt_sem, opt,
+                  steps=TRAIN_STEPS + 1):
     """The full-width training steps before ``train_phases``' timed ones:
-    TRAIN_STEPS + 1 steps from TRAIN_ITER0, the first one semantic
-    (nq=12), with the schedule's loss, real Adam updates and densification
-    statistics. ``train_step`` updates ``state``'s parameters in place.
-    Returns (state, opt_state, losses, overflow)."""
+    ``steps`` (TRAIN_STEPS + 1) steps from TRAIN_ITER0, the first one
+    semantic (nq=12), with the schedule's loss, real Adam updates and
+    densification statistics. ``train_step`` updates ``state``'s
+    parameters in place. Returns (state, opt_state, losses, overflow)."""
     from streetunveiler_torch.train.step import (bin_step, init_optimizer,
                                                  train_step)
     opt_state = init_optimizer(state)
     losses, overflow = [], False
-    for i in range(TRAIN_STEPS + 1):
+    for i in range(steps):
         b = bin_step(state, cam, duplicate_capacity=cap, device="cuda")
         state, opt_state, _, _, m = train_step(
             state, opt_state, cam, gt, bg, TRAIN_ITER0 + i, opt,
@@ -814,9 +816,9 @@ def untimed_steps(torch, state, cam, cap, bg, gt, gt_sem, opt):
     return state, opt_state, losses, overflow
 
 
-def densify_full_capacity(torch, state, opt_state, opt):
-    """densify_and_prune at full capacity with a seeded generator, the
-    gradient threshold at the 90th percentile of the nonzero accumulated
+def densify_full_capacity(torch, state, opt_state, opt, seed=0):
+    """densify_and_prune at full capacity with a generator from ``seed``,
+    the gradient threshold at the 90th percentile of the nonzero accumulated
     screen gradients, so that thousands of surfels want to clone or split:
     nothing can be placed, so no split parent may be pruned. Returns
     (state, opt_state, threshold, surfels at or above it)."""
@@ -824,7 +826,7 @@ def densify_full_capacity(torch, state, opt_state, opt):
     grads = state.grad_accum / state.denom.clamp(min=1)
     threshold = float(torch.quantile(grads[grads > 0], 0.9))
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
+    gen.manual_seed(seed)
     d_state, mu, nu = densify_and_prune(
         state, opt_state.mu, opt_state.nu, threshold, opt.opacity_cull,
         None, generator=gen, percent_dense=opt.percent_dense)
@@ -832,20 +834,31 @@ def densify_full_capacity(torch, state, opt_state, opt):
             int((grads >= threshold).sum()))
 
 
-def deterministic_trained_state(torch, state, cam, cap, bg, gt, gt_sem):
+# The deterministically trained states of the late checks: name →
+# (training steps, densify seed). "" is the training phases' own schedule,
+# checked in full; the others show the margin on other trained states,
+# with fewer T1/T2 variants (late_trained_check)
+TRAINED_STATES = {"": (TRAIN_STEPS + 1, 0), "seed1": (TRAIN_STEPS + 1, 1),
+                  "steps11": (11, 2)}
+
+
+def deterministic_trained_state(torch, state, cam, cap, bg, gt, gt_sem,
+                                name=""):
     """A trained state that repeats from run to run, for the late checks:
     ``untimed_steps`` and ``densify_full_capacity`` on a ``state_copy`` of
-    ``state``, all under ``torch.use_deterministic_algorithms(True,
-    warn_only=True)`` (the previous setting restored after), so that the
-    record scatter's ``index_add_`` sums each surfel's duplicates in a
-    fixed order and not by atomics. The timed phases keep the default
-    mode. Emits ``trained_state`` (each step's loss, the operations that
-    warned of having no deterministic form, an f64 sum of each parameter)
-    and returns the state."""
+    ``state`` with the steps and densify seed of TRAINED_STATES[name], all
+    under ``torch.use_deterministic_algorithms(True, warn_only=True)`` (the
+    previous setting restored after), so that the record scatter's
+    ``index_add_`` sums each surfel's duplicates in a fixed order and not
+    by atomics. The timed phases keep the default mode. Emits
+    ``trained_state[_name]`` (each step's loss, the operations that warned
+    of having no deterministic form, an f64 sum of each parameter) and
+    returns the state."""
     import dataclasses
     import warnings
     from streetunveiler_torch.config import OptimizationParams
     opt = OptimizationParams()
+    steps, seed = TRAINED_STATES[name]
     prev = (torch.are_deterministic_algorithms_enabled(),
             torch.is_deterministic_algorithms_warn_only_enabled())
     t_start = time.perf_counter()
@@ -854,16 +867,18 @@ def deterministic_trained_state(torch, state, cam, cap, bg, gt, gt_sem):
             warnings.simplefilter("always")
             torch.use_deterministic_algorithms(True, warn_only=True)
             trained, opt_state, losses, overflow = untimed_steps(
-                torch, state_copy(state), cam, cap, bg, gt, gt_sem, opt)
+                torch, state_copy(state), cam, cap, bg, gt, gt_sem, opt,
+                steps)
             trained, opt_state, threshold, high = densify_full_capacity(
-                torch, trained, opt_state, opt)
+                torch, trained, opt_state, opt, seed)
             torch.cuda.synchronize()
     finally:
         torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
     finite = finite_state(torch, trained, opt_state)
     alive = int(trained.num_alive)
-    emit("trained_state", steps=TRAIN_STEPS + 1, iteration0=TRAIN_ITER0,
-         first_step_nq=12, losses=losses, overflow=overflow, finite=finite,
+    emit("trained_state" + (f"_{name}" if name else ""), steps=steps,
+         iteration0=TRAIN_ITER0, first_step_nq=12, densify_seed=seed,
+         losses=losses, overflow=overflow, finite=finite,
          grad_threshold=threshold, high_gradient=high, alive=alive,
          param_sums={f.name: float(getattr(trained.params, f.name).double()
                                    .sum())
@@ -973,11 +988,12 @@ def train_phases(torch, state, cam, cap, bg, gt, gt_sem):
 def late_phases(torch, state, cam, cap, bg, gt, gt_sem, trained):
     """The late-phase step at full width on ``state`` (the street state as
     built, the same in every run): gated K1/K2 against their plain
-    versions (the late loss on ``state`` and on ``trained``, the
-    deterministically trained state, and a dense-occlusion stack), then
-    TRAIN_STEPS + 1 late steps with the sky, their time by stage and
-    their profile. Returns what the kernels line needs of it, with the
-    captured late streams of both states (``args``, ``trained_args``)."""
+    versions (the late loss on ``state``, on each of ``trained``, the
+    deterministically trained states by name, and on a dense-occlusion
+    stack), then TRAIN_STEPS + 1 late steps with the sky, their time by
+    stage and their profile. Returns what the kernels line needs of it,
+    with the captured late streams of ``state`` (``args``) and of each
+    trained state (``trained_args``, by name)."""
     from streetunveiler_torch.config import OptimizationParams
     from streetunveiler_torch.models.sky import init_sky
     from streetunveiler_torch.ops.rasterizer import (RasterizeSettings,
@@ -997,10 +1013,13 @@ def late_phases(torch, state, cam, cap, bg, gt, gt_sem, trained):
         return loss_fn
     k1_full, k2_full, a = gated_vs_plain(torch, kernel, late_loss(state),
                                          "full_width")
-    k1_tr, k2_tr, a_tr = gated_vs_plain(torch, kernel, late_loss(trained),
-                                        "late_trained_full_width",
-                                        save_failed=True)
-    for x in (a, a_tr):
+    k1_tr, k2_tr, a_tr = {}, {}, {}
+    for name, st in trained.items():
+        k1_tr[name], k2_tr[name], a_tr[name] = gated_vs_plain(
+            torch, kernel, late_loss(st),
+            "late_trained" + (f"_{name}" if name else "") + "_full_width",
+            save_failed=True)
+    for x in (a, *a_tr.values()):
         if (x[8], x[9]) != (12, G_LATE):
             raise AssertionError(f"the late loss ran the blend at "
                                  f"nq={x[8]}, G={x[9]}")
@@ -1073,11 +1092,11 @@ def late_phases(torch, state, cam, cap, bg, gt, gt_sem, trained):
               "render_sky and its backward; each stage alone in CUDA events")
     emit("train_late_profile", **profile_frames(torch, step, 3))
     return dict(k1=dict(k1_full, max_abs_err=max(
-                    k1_full["max_abs_err"], k1_tr["max_abs_err"],
-                    k1_dense["max_abs_err"])),
+                    k1_full["max_abs_err"], k1_dense["max_abs_err"],
+                    *(k["max_abs_err"] for k in k1_tr.values()))),
                 k2=dict(k2_full, max_abs_err=max(
-                    k2_full["max_abs_err"], k2_tr["max_abs_err"],
-                    k2_dense["max_abs_err"])),
+                    k2_full["max_abs_err"], k2_dense["max_abs_err"],
+                    *(k["max_abs_err"] for k in k2_tr.values()))),
                 launches=launches, args=a, trained_args=a_tr)
 
 
@@ -1387,14 +1406,18 @@ def rel_err(got, want, dims, floor):
     return float(((got - want).abs().amax(dim=dims) / scale).max())
 
 
-def worst_pixel(torch, err, same):
-    """(row, column) of the largest entry of ``err`` [H, W, C] among the
-    pixels where ``same`` [H, W] holds, and its channel."""
+def worst_pixel(torch, err, same, tiles_x):
+    """The largest entry of ``err`` [tiles, 512, C], K1's layout (a tile's
+    16×32 pixels row by row, the tiles row by row, ``tiles_x`` a row),
+    among the pixels where ``same`` [tiles, 512] holds: its tile, its
+    image row and column, and its channel."""
+    from streetunveiler_torch.ops.rasterizer.kernel import TILE_H, TILE_W
     masked = torch.where(same[..., None], err, torch.zeros_like(err))
     flat = int(masked.reshape(-1).argmax())
     c = err.shape[2]
-    return dict(row=flat // c // err.shape[1], col=flat // c % err.shape[1],
-                channel=flat % c)
+    tile, sub = divmod(flat // c, err.shape[1])
+    return dict(tile=tile, row=tile // tiles_x * TILE_H + sub // TILE_W,
+                col=tile % tiles_x * TILE_W + sub % TILE_W, channel=flat % c)
 
 
 def save_stream(torch, label, args):
@@ -1416,12 +1439,16 @@ def t1_vs_plain(torch, bf, k1_args, design="first", variants=None):
     median flips, the channel of the largest error, the largest absolute
     error, the pixel where the error relative to its channel's scale is
     largest, and the pairs the plain version counts: the design's, and the
-    first design's (every pair a live chain reaches)."""
-    from streetunveiler_torch.ops.rasterizer import tiles
-    nq, n_gates = k1_args[5], k1_args[6]
+    first design's (every pair a live chain reaches). ``full_nolkmax``,
+    which has no lk of its own, also reads the mask of ``full`` (run
+    before it on the same stream) at its worst pixel, and its error over
+    the pixels both masks keep (``full_mask``), for the knife-edge rule;
+    the check itself keeps its own mask."""
+    from streetunveiler_torch.ops.rasterizer import kernel, tiles
+    nq, n_gates, tiles_x = k1_args[5], k1_args[6], k1_args[2]
     ch = nq + 6
     order = tiles.tile_order(k1_args[1]) if design == "sm90" else None
-    out, ok = {}, True
+    out, ok, full_same = {}, True, None
     for v in variants or bf.VARIANTS:
         acc, lk = bf.bisect_forward_cuda(v, *k1_args, design=design,
                                          tile_order=order)
@@ -1450,7 +1477,22 @@ def t1_vs_plain(torch, bf, k1_args, design="first", variants=None):
         v_ok = (mism <= FLIP_FRACTION and err <= tol
                 and bool(torch.isfinite(acc).all())
                 and (lk is None) == (want_lk is None))
-        worst = worst_pixel(torch, (acc - want_acc).abs() / scale, same)
+        worst = worst_pixel(torch, (acc - want_acc).abs() / scale, same,
+                            tiles_x)
+        extra = {}
+        if v == "full":
+            full_same = same
+        elif v == "full_nolkmax" and full_same is not None:
+            both = same & full_same
+            at = (worst["row"] // kernel.TILE_H * tiles_x
+                  + worst["col"] // kernel.TILE_W,
+                  worst["row"] % kernel.TILE_H * kernel.TILE_W
+                  + worst["col"] % kernel.TILE_W)
+            extra["full_mask"] = dict(
+                dropped_pixels=int((same & ~full_same).sum()),
+                keeps_worst_pixel=bool(full_same[at]),
+                max_rel_err=float(((acc[both] - want_acc[both]).abs()
+                                   .amax(dim=0) / scale).max()))
         out[v] = dict(mismatch_frac=mism,
                       median_flip_frac=float(flips.float().mean()),
                       max_rel_err=err, worst_channel=int(per_channel.argmax()),
@@ -1460,7 +1502,7 @@ def t1_vs_plain(torch, bf, k1_args, design="first", variants=None):
                       evaluated_pairs=count["evaluated"],
                       evaluated_pairs_first_design=count[
                           "evaluated_first_design"],
-                      within_tolerance=v_ok)
+                      **extra, within_tolerance=v_ok)
         ok = ok and v_ok
     return out, ok
 
@@ -1489,30 +1531,34 @@ def t2_vs_plain(torch, bb, a, design="first", variants=None):
     return out, ok
 
 
-# The variants of the late checks on the trained state's stream: every T1
-# variant of the first design (one of them once failed on a state trained
-# through atomics), `full` and `full_nolkmax` of the sm90 design, T2's
-# `full` in both designs; a gated plain variant costs seconds at full
-# width, and chip_smoke.py has to stay inside the card's time limit
+# The variants of the late checks on the trained states' streams: on the
+# training phases' own state every T1 variant of the first design (one of
+# them once failed on a state trained through atomics), `full` and
+# `full_nolkmax` of the sm90 design, T2's `full` in both designs; on the
+# other trained states (TRAINED_STATES) `full` and `full_nolkmax` of
+# both designs. A gated plain variant costs seconds at full width, and
+# chip_smoke.py has to stay inside the card's time limit
 TRAINED_T1 = {"first": None, "sm90": ("full", "full_nolkmax")}
 TRAINED_T2 = ("full",)
 
 
-def late_trained_check(torch, a, tool, design):
+def late_trained_check(torch, a, tool, design, name=""):
     """T1's (``tool`` "fwd") or T2's ("bwd") variants of ``design``
     (TRAINED_T1, TRAINED_T2) against their plain versions on ``a``, the
-    late stream of the deterministically trained state
+    late stream of the deterministically trained state ``name``
     (``deterministic_trained_state``), in the line
-    ``bisect_{tool}[_sm90]_vs_plain_late_trained_full_width``; a failed
-    check saves the stream first (``save_stream``). Returns the
+    ``bisect_{tool}[_sm90]_vs_plain_late_trained[_name]_full_width``; a
+    failed check saves the stream first (``save_stream``). Returns the
     verdict."""
     from streetunveiler_torch.tools import bisect_bwd, bisect_fwd
     label = (f"bisect_{tool}{'' if design == 'first' else '_sm90'}"
-             f"_vs_plain_late_trained_full_width")
+             f"_vs_plain_late_trained{f'_{name}' if name else ''}"
+             f"_full_width")
     nq, n_gates = a[8], a[9]
     if tool == "fwd":
         res, ok = t1_vs_plain(torch, bisect_fwd, a[:5] + (nq, n_gates),
-                              design, TRAINED_T1[design])
+                              design, TRAINED_T1["sm90" if name
+                                                 else design])
     else:
         res, ok = t2_vs_plain(torch, bisect_bwd, a, design, TRAINED_T2)
     emit(label, nq=nq, n_gates=n_gates, duplicates=int(a[1][-1]),
@@ -1529,7 +1575,7 @@ def tool_phases(torch, photo_args, late_args, k2_photo, trained_args):
     and mode timed at full width. ``photo_args``/``late_args`` are the
     captured arguments of the photometric (nq 6) and late (nq 12, G 5)
     backward at full width; ``k2_photo`` K2's line on the former;
-    ``trained_args`` the late backward's on the trained state
+    ``trained_args`` the late backward's on each trained state, by name
     (``late_trained_check``). Returns the kernels-line rows."""
     from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
     from streetunveiler_torch.tools import (bisect_bwd, bisect_fwd,
@@ -1641,9 +1687,10 @@ def tool_phases(torch, photo_args, late_args, k2_photo, trained_args):
                               bound_by=k2_photo["bound_by"],
                               max_abs_err=b_res["full"]["max_abs_err"])
 
-    for tool in ("fwd", "bwd"):
-        all_ok = late_trained_check(torch, trained_args, tool,
-                                    "first") and all_ok
+    for name, a in trained_args.items():
+        for tool in ("fwd", "bwd"):
+            all_ok = late_trained_check(torch, a, tool, "first",
+                                        name) and all_ok
 
     # ---- T3: micro_reduce at the TPU tool's size
     x = micro_reduce.make_input()
@@ -2627,7 +2674,7 @@ def bisect_bwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas,
     turns first, new, new, first beside its first-design counterpart
     (median of TOOL_REPS CUDA-event times, dgrad zeroed outside the timed
     launches); gated K2's time split by both designs' variants; the late
-    check on the trained state's stream ``trained_args``
+    checks on the trained states' streams ``trained_args``, by name
     (``late_trained_check``). Returns the kernels-row numbers and the
     verdict."""
     from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
@@ -2692,7 +2739,8 @@ def bisect_bwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas,
                             same_registers_and_spills=same_regs,
                             variants=times)
         ok = ok and exact and same_regs
-    ok = late_trained_check(torch, trained_args, "bwd", "sm90") and ok
+    for name, a in trained_args.items():
+        ok = late_trained_check(torch, a, "bwd", "sm90", name) and ok
     late = forms["late"]["variants"]
     split = k2_split({v: late[v]["ms"] for v in late})
     split_first = k2_split({v: late[v]["ms_first_design"] for v in late})
@@ -2750,9 +2798,9 @@ def bisect_fwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas,
     full-width streams; every variant timed in the turns first, new, new,
     first beside its first-design counterpart (median of TOOL_REPS
     CUDA-event times), with both designs' evaluated pairs; gated K1's time
-    split by both designs' variants; the late check on the trained state's
-    stream ``trained_args`` (``late_trained_check``). Returns the
-    kernels-row numbers and the verdict."""
+    split by both designs' variants; the late checks on the trained
+    states' streams ``trained_args``, by name (``late_trained_check``).
+    Returns the kernels-row numbers and the verdict."""
     from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
     from streetunveiler_torch.tools import bisect_fwd, street, timing
     cuda_lib.reset_launch_counts()
@@ -2827,7 +2875,8 @@ def bisect_fwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas,
                                 "bisect_fwd_sm90", nq, n_gates),
                             variants=times)
         ok = ok and exact and same_regs
-    ok = late_trained_check(torch, trained_args, "fwd", "sm90") and ok
+    for name, a in trained_args.items():
+        ok = late_trained_check(torch, a, "fwd", "sm90", name) and ok
     late = forms["late"]["variants"]
     split = k1_split({v: late[v]["ms"] for v in late})
     split_first = k1_split({v: late[v]["ms_first_design"] for v in late})
@@ -3190,12 +3239,40 @@ def micro_floor_redesign(torch, ptxas, probes):
 GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
                     4: "graph", 5: "empty", 6: "wait_event",
                     7: "event_record", 10: "mem_alloc", 11: "mem_free"}
+# su_identity_split's kinds: an empty kernel, the first design's body on a
+# grid of the caller's, the redesign launched without the programmatic
+# attribute
+SPLIT_KINDS = {"empty": 0, "first_body": 1, "redesign_plain_launch": 2}
+# a copy's share of its byte bound above this means its bytes did not all
+# come from and go to HBM (the source was still in L2): the time is not
+# the bound case
+SHARE_OF_BOUND_MAX = 1.05
+
+
+def split_launch(torch, kind, xp, blocks=0, threads=0, key="identity"):
+    """One launch of ``su_identity_split``'s ``kind`` (SPLIT_KINDS) on the
+    padded int32 CUDA tensor xp: the empty kernel and the first design's
+    body on <<<blocks, threads>>>, the redesign without its programmatic
+    launch. Returns the copy (xp itself for the empty kernel, which copies
+    nothing); a copy counts under ``key``."""
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch.tools import probe_tax
+    index, stream = probe_tax._check_padded(xp)
+    out = xp if kind == "empty" else torch.empty_like(xp)
+    rc = cuda_lib.load_library().su_identity_split(
+        SPLIT_KINDS[kind], blocks, threads, xp.data_ptr(), out.data_ptr(),
+        xp.numel(), index, stream)
+    cuda_lib.check(rc, f"identity split launch ({kind})")
+    if kind != "empty":
+        cuda_lib.launch_counts[key] += 1
+    return out
 
 
 def graph_nodes(torch, fn, calls=3):
     """The nodes of ``calls`` calls of ``fn`` captured in a CUDA graph
     (``su_graph_nodes``): each node's type with a kernel node's blocks
-    and threads or a memcpy node's bytes, and the edges' types."""
+    and threads (-1 for a kernel of PyTorch's, whose grid the runtime does
+    not give) or a memcpy node's bytes, and the edges' types."""
     import ctypes
     from streetunveiler_torch.ops.rasterizer import cuda_lib
     side = torch.cuda.Stream()
@@ -3232,6 +3309,20 @@ def graph_nodes(torch, fn, calls=3):
         for i in range(min(n_edges.value, n))])
 
 
+def rotated(fn, xs):
+    """A call of ``fn`` on each of ``xs`` in turn, each result held until
+    len(xs) calls later: in a CUDA graph of that many calls every call
+    reads its own source and writes its own output, so that sources of
+    more than the L2 between them are read from HBM on every replay."""
+    held = collections.deque(maxlen=len(xs))
+    turn = [0]
+
+    def call():
+        held.append(fn(xs[turn[0] % len(xs)]))
+        turn[0] += 1
+    return call
+
+
 def identity_phases(torch, off, surf, ptxas):
     """T7/T8's copy (phase group 16) on the street's padded tile_offsets
     and sorted_surfel, the probes' sizes. ``identity_gap_split``: in a
@@ -3240,12 +3331,19 @@ def identity_phases(torch, off, surf, ptxas):
     body on one block and on the fewest blocks of 1,024 threads, the
     redesign launched without and with its programmatic attribute, the
     one-element ``fill_`` of ``launch_floor_ms``; and which graph nodes
-    ``clone`` and both designs become. ``identity_redesign``: both designs
-    bit for bit against each other and the input (what ``clone`` gives)
-    at every length of a list, the padded tile_offsets, sorted_surfel and
-    T7's stack of sorted_surfel and its reverse; both designs and
-    ``clone`` in turns (``graph_rounds``) at the three sizes; ptxas; the
-    bound. Returns the kernels-row numbers and the verdict."""
+    ``clone`` and both designs become. ``identity_path``: the probes'
+    own sequence, pad then copy then slice (``identity_copy_cuda``,
+    ``identity_copy_stack_cuda``), with each design, the redesign without
+    its programmatic launch, and the plain version (pad, ``clone``,
+    slice), all in turns (``graph_rounds``), and the graph nodes and edges
+    of the redesign's. ``identity_redesign``: both designs bit for bit
+    against each other and the input (what ``clone`` gives) at every
+    length of a list, the padded tile_offsets, sorted_surfel and T7's
+    stack of sorted_surfel and its reverse; both designs and ``clone`` in
+    turns (``graph_rounds``) at the four sizes, the two large ones on as
+    many sources and outputs as exceed the L2 four times (``rotated``),
+    their share of the byte bound no more than SHARE_OF_BOUND_MAX; ptxas;
+    the bound. Returns the kernels-row numbers and the verdict."""
     from streetunveiler_torch.ops.rasterizer import cuda_lib
     from streetunveiler_torch.tools import probe_compose4, probe_tax
     cuda_lib.reset_launch_counts()
@@ -3258,15 +3356,15 @@ def identity_phases(torch, off, surf, ptxas):
     one = torch.zeros(1, device="cuda")
     split = dict(
         first_design=lambda: probe_tax.copy_cuda(pad, design="first"),
-        empty_first_design_grid=lambda: probe_tax._split_launch(
-            "empty", pad, first_blocks, 256),
-        empty_1x32=lambda: probe_tax._split_launch("empty", pad, 1, 32),
-        first_body_1x256=lambda: probe_tax._split_launch(
-            "first_body", pad, 1, 256),
-        **{f"first_body_{fewest}x1024": lambda: probe_tax._split_launch(
-            "first_body", pad, fewest, 1024)},
-        redesign_plain_launch=lambda: probe_tax._split_launch(
-            "redesign_plain_launch", pad),
+        empty_first_design_grid=lambda: split_launch(
+            torch, "empty", pad, first_blocks, 256),
+        empty_1x32=lambda: split_launch(torch, "empty", pad, 1, 32),
+        first_body_1x256=lambda: split_launch(
+            torch, "first_body", pad, 1, 256),
+        **{f"first_body_{fewest}x1024": lambda: split_launch(
+            torch, "first_body", pad, fewest, 1024)},
+        redesign_plain_launch=lambda: split_launch(
+            torch, "redesign_plain_launch", pad),
         redesign=lambda: probe_tax.copy_cuda(pad),
         fill_floor=lambda: one.fill_(1.0))
     cand = {}
@@ -3294,6 +3392,45 @@ def identity_phases(torch, off, surf, ptxas):
               "overlap_gain_ms: the redesign's median launched without "
               "minus with its programmatic attribute")
 
+    # ---- the probes' own sequence: the pad's torch.cat before the copy
+    n = off.numel()
+
+    def t8(copy):
+        return lambda: copy(probe_tax.pad_lanes(off)).view(-1)[:n]
+
+    def t7(copy):
+        return lambda: copy(probe_compose4.stack_lanes(off))[0].view(-1)[:n]
+    path = {}
+    for name, wrap, key, own, plain in (
+            ("T8", t8, "identity", probe_tax.identity_copy_cuda,
+             probe_tax.identity_copy_plain),
+            ("T7", t7, "identity_stack",
+             probe_compose4.identity_copy_stack_cuda,
+             probe_compose4.identity_copy_stack_plain)):
+        t = graph_rounds(torch, dict(
+            first_design=wrap(lambda x: probe_tax.copy_cuda(x, key,
+                                                            "first")),
+            redesign=lambda: own(off),
+            redesign_plain_launch=wrap(lambda x: split_launch(
+                torch, "redesign_plain_launch", x, key=key)),
+            clone=lambda: plain(off)), replayed)
+        med = {k: statistics.median(v) for k, v in t.items()}
+        path[name] = dict(
+            **{k: turns_summary(v) for k, v in t.items()},
+            redesign_minus_clone=med["redesign"] - med["clone"],
+            first_design_minus_clone=med["first_design"] - med["clone"],
+            overlap_gain_ms=med["redesign_plain_launch"] - med["redesign"],
+            graph_nodes=graph_nodes(torch, lambda: own(off)))
+    emit("identity_path", values=n, path=path,
+         note="each function captured as 20 calls in one CUDA graph, the "
+              "graphs replayed in the turns first, new, new without the "
+              "programmatic attribute, clone and back for 8 rounds (ms a "
+              "call): T8 pad_lanes (torch.cat), copy, slice; T7 "
+              "stack_lanes, copy, unstack; clone the plain version of each "
+              "on the card; overlap_gain_ms: the redesign launched without "
+              "minus with its programmatic attribute; graph_nodes: the "
+              "redesign's sequence, 3 calls")
+
     # ---- bits: every design against the other and the input
     surf_pad = probe_tax.pad_lanes(surf)
     stack = probe_compose4.stack_lanes(surf, surf.flip(0))
@@ -3317,40 +3454,58 @@ def identity_phases(torch, off, surf, ptxas):
         ok = ok and all(bits[name].values())
         del new, first
 
-    # ---- both designs and clone in turns, at the probes' sizes
+    # ---- both designs and clone in turns, at the probes' sizes; the two
+    # large ones rotate over sources and outputs of four times the L2
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 * 2 ** 20)
     sized = {}
     for name in ("tile_offsets", "t7_stack_tile_offsets", "sorted_surfel",
                  "t7_stack"):
         x = sizes[name]
         key = "identity_stack" if name.startswith("t7") else "identity"
+        large = x.numel() >= surf_pad.numel()
+        xs = [x] + [x.clone() for _ in range(
+            min(20, -(-4 * l2 // (4 * x.numel()))) - 1)] if large else [x]
         t = graph_rounds(torch, dict(
-            first_design=lambda: probe_tax.copy_cuda(x, key, "first"),
-            redesign=lambda: probe_tax.copy_cuda(x, key),
-            clone=x.clone), replayed)
+            first_design=rotated(
+                lambda s: probe_tax.copy_cuda(s, key, "first"), xs),
+            redesign=rotated(lambda s: probe_tax.copy_cuda(s, key), xs),
+            clone=rotated(lambda s: s.clone(), xs)), replayed)
         nbytes = 2 * 4 * x.numel()
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         med = {k: statistics.median(v) for k, v in t.items()}
+        share = {k: bound_ms / v for k, v in med.items()}
         sized[name] = dict(
             values=x.numel(), bytes=nbytes, bound_ms=bound_ms,
+            sources=len(xs), source_bytes_in_all=4 * x.numel() * len(xs),
             **{k: turns_summary(v) for k, v in t.items()},
             redesign_no_slower_than_first=med["redesign"]
             <= med["first_design"],
             redesign_no_slower_than_clone=med["redesign"] <= med["clone"],
-            share_of_bound=bound_ms / med["redesign"])
+            share_of_bound=share)
+        if large and max(share.values()) > SHARE_OF_BOUND_MAX:
+            ok = False
+        del xs, t
     regs = {k: ptxas.get(k) for k in ("T7/T8 copy<256>", "T7/T8 copy sm90",
                                       "T7/T8 copy<1024>", "T7/T8 empty")}
     torch.cuda.synchronize()
     launches = {k: cuda_lib.launch_counts[k] + replayed[k]
                 for k in ("identity", "identity_stack")}
     emit("identity_redesign", bit_exact=bits, sizes=sized, ptxas=regs,
+         l2_bytes=l2, share_of_bound_max=SHARE_OF_BOUND_MAX,
          tool_launches=launches, seconds=time.perf_counter() - t_start,
          within_tolerance=ok,
          note="both designs and clone captured as 20 calls a CUDA graph "
               "each, replayed in the turns first, new, clone, clone, new, "
-              "first for 8 rounds (ms a call); bound: the values read and "
-              "written once over the HBM rate; t7_stack: sorted_surfel and "
-              "its reverse, one launch; t7_stack_tile_offsets: the stack of "
-              "tile_offsets alone, as the probes' path copies it")
+              "first for 8 rounds (ms a call); sorted_surfel and t7_stack: "
+              "each call of a graph on its own source and output (sources: "
+              "how many, of four times the L2 in all or 20), so that every "
+              "replay reads them from HBM; bound: the values read and "
+              "written once over the HBM rate; share_of_bound: bound over "
+              "median, above share_of_bound_max at a large size fails the "
+              "phase; t7_stack: sorted_surfel and its reverse, one launch; "
+              "t7_stack_tile_offsets: the stack of tile_offsets alone, as "
+              "the probes' path copies it")
     return dict(ok=ok, launches=launches,
                 t8=dict(ms_first_design=sized["tile_offsets"][
                     "first_design"]["median"]),
@@ -3522,7 +3677,7 @@ def main():
     pairs = counts[EVALUATED]
     torch.cuda.synchronize()
     k1_err = check_blend(torch, acc, lk, want_acc, want_lk, 6,
-                         "k1_vs_plain_nq6")
+                         "k1_vs_plain_nq6", binning.tiles_x)
     onehot = torch.nn.functional.one_hot(state.semantics.long(), 6).float()
     recT9 = _gather_records(kernel.pack_geometry_T(sur, N_SURFELS,
                                                    onehot[:, 3:6]),
@@ -3533,7 +3688,7 @@ def main():
     want9 = kernel.blend_forward_plain(*k1_9)
     torch.cuda.synchronize()
     k1_err = max(k1_err, check_blend(torch, acc9, lk9, *want9, 9,
-                                     "k1_vs_plain_nq9"))
+                                     "k1_vs_plain_nq9", binning.tiles_x))
     k1_ms = cuda_ms(torch, lambda: kernel.blend_forward_cuda(
         *k1_args, tile_order=binning.tile_order), 20)
     k1_plain_ms = cuda_ms(torch,
@@ -3607,10 +3762,12 @@ def main():
     # and with it the inputs of every *_late_full_width check, would
     # differ from run to run
     late_state = state_copy(state)
-    # and a trained one that repeats from run to run: the training phases'
-    # untimed steps under the deterministic mode, on another copy
-    trained = deterministic_trained_state(torch, state, cam, cap, bg, gt,
-                                          gt_sem)
+    # and trained ones that repeat from run to run: the training phases'
+    # untimed steps under the deterministic mode, on other copies (the
+    # phases' own schedule, another densify seed, fewer steps)
+    trained = {name: deterministic_trained_state(torch, state, cam, cap, bg,
+                                                 gt, gt_sem, name)
+               for name in TRAINED_STATES}
     k2, train_launches = train_phases(torch, state, cam, cap, bg, gt, gt_sem)
     late = late_phases(torch, late_state, cam, cap, bg, gt, gt_sem, trained)
     del trained

@@ -14,37 +14,19 @@
 // su_identity is the redesign (identity_sm90.cuh: a grid that covers n
 // once, a programmatic launch); su_identity_first the first design, a
 // grid-stride loop of 16-byte loads and stores with 64-bit indices.
-// su_identity_split and su_graph_nodes serve the measurement of what a
-// copy costs in a CUDA graph against `clone`'s memcpy node.
+// The measurement of a copy in a CUDA graph against `clone`'s memcpy node
+// lives apart, in identity_split.cu.
 
 #include <cuda_runtime.h>
 
+#include "identity_first.cuh"
 #include "identity_sm90.cuh"
-
-namespace {
-
-template <int kMaxThreads>
-__global__ void __launch_bounds__(kMaxThreads)
-copy_int4(const int4* __restrict__ src, int4* __restrict__ dst,
-          long long n4) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < n4; i += (long long)gridDim.x * blockDim.x)
-    dst[i] = src[i];
-}
-
-__global__ void empty_kernel() {}
-
-bool bad_length(long long n) {
-  return n < 128 || n % 128 != 0 || n / 4 > su_copy::kMaxN4;
-}
-
-}  // namespace
 
 // src, dst [n] int32, n a positive multiple of 128. Returns
 // cudaGetLastError().
 extern "C" int su_identity(const int* src, int* dst, long long n, int device,
                            void* stream) {
-  if (bad_length(n)) return (int)cudaErrorInvalidValue;
+  if (su_copy::bad_length(n)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   err = su_copy::launch(src, dst, n / 4, true, (cudaStream_t)stream);
@@ -61,81 +43,8 @@ extern "C" int su_identity_first(const int* src, int* dst, long long n,
   if (err != cudaSuccess) return (int)err;
   const long long n4 = n / 4;
   const long long blocks = (n4 + 255) / 256;
-  copy_int4<256><<<(int)(blocks < 1024 ? blocks : 1024), 256, 0,
-                   (cudaStream_t)stream>>>(reinterpret_cast<const int4*>(src),
-                                           reinterpret_cast<int4*>(dst), n4);
+  su_copy::copy_int4<256><<<(int)(blocks < 1024 ? blocks : 1024), 256, 0,
+                             (cudaStream_t)stream>>>(
+      reinterpret_cast<const int4*>(src), reinterpret_cast<int4*>(dst), n4);
   return (int)cudaGetLastError();
-}
-
-// The parts of a copy in a graph, for the measurement: kind 0 an empty
-// kernel at <<<blocks, threads>>> (src, dst and n unused); kind 1 the
-// first design's body at <<<blocks, threads>>>, threads up to 1,024;
-// kind 2 the redesign launched without the programmatic attribute.
-extern "C" int su_identity_split(int kind, int blocks, int threads,
-                                 const int* src, int* dst, long long n,
-                                 int device, void* stream) {
-  if (kind < 0 || kind > 2 || (kind < 2 && (blocks < 1 || threads < 1 ||
-                                            threads > 1024)) ||
-      (kind > 0 && bad_length(n)))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (kind == 0) {
-    empty_kernel<<<blocks, threads, 0, s>>>();
-  } else if (kind == 1) {
-    copy_int4<1024><<<blocks, threads, 0, s>>>(
-        reinterpret_cast<const int4*>(src), reinterpret_cast<int4*>(dst),
-        n / 4);
-  } else {
-    err = su_copy::launch(src, dst, n / 4, false, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
-}
-
-// What a captured CUDA graph holds: for each of its first `max` nodes its
-// cudaGraphNodeType in types[i] and in info[2i], info[2i + 1] a kernel
-// node's blocks and threads or a memcpy node's bytes (and 0); for each of
-// its first `max` edges its cudaGraphDependencyType (1: programmatic).
-// *n_nodes and *n_edges get the counts. Returns a CUDA error code.
-extern "C" int su_graph_nodes(void* graph, int max, int* types,
-                              long long* info, int* n_nodes,
-                              int* edge_types, int* n_edges) {
-  if (max < 1 || max > 256) return (int)cudaErrorInvalidValue;
-  cudaGraph_t g = (cudaGraph_t)graph;
-  cudaGraphNode_t nodes[256];
-  size_t n = max;
-  cudaError_t err = cudaGraphGetNodes(g, nodes, &n);
-  if (err != cudaSuccess) return (int)err;
-  *n_nodes = (int)n;
-  for (size_t i = 0; i < n && i < (size_t)max; ++i) {
-    cudaGraphNodeType t;
-    err = cudaGraphNodeGetType(nodes[i], &t);
-    if (err != cudaSuccess) return (int)err;
-    types[i] = (int)t;
-    info[2 * i] = info[2 * i + 1] = 0;
-    if (t == cudaGraphNodeTypeKernel) {
-      cudaKernelNodeParams p;
-      err = cudaGraphKernelNodeGetParams(nodes[i], &p);
-      if (err != cudaSuccess) return (int)err;
-      info[2 * i] = (long long)p.gridDim.x * p.gridDim.y * p.gridDim.z;
-      info[2 * i + 1] = (long long)p.blockDim.x * p.blockDim.y * p.blockDim.z;
-    } else if (t == cudaGraphNodeTypeMemcpy) {
-      cudaMemcpy3DParms p;
-      err = cudaGraphMemcpyNodeGetParams(nodes[i], &p);
-      if (err != cudaSuccess) return (int)err;
-      info[2 * i] = (long long)(p.extent.width * p.extent.height *
-                                p.extent.depth);
-    }
-  }
-  cudaGraphNode_t from[256], to[256];
-  cudaGraphEdgeData data[256];
-  size_t ne = max;
-  err = cudaGraphGetEdges_v2(g, from, to, data, &ne);
-  if (err != cudaSuccess) return (int)err;
-  *n_edges = (int)ne;
-  for (size_t i = 0; i < ne && i < (size_t)max; ++i)
-    edge_types[i] = (int)data[i].type;
-  return 0;
 }

@@ -36,7 +36,7 @@ constexpr unsigned kPerBlock = kThreads * kVec;
 // the largest n / 4 whose block-relative indices fit in 32 bits
 constexpr long long kMaxN4 = 0xFFFFFFFFll - kPerBlock;
 
-__global__ void __launch_bounds__(kThreads)
+static __global__ void __launch_bounds__(kThreads)
 copy_vec(const int4* __restrict__ src, int4* __restrict__ dst, unsigned n4) {
   asm volatile("griddepcontrol.wait;" ::: "memory");
   const unsigned i = blockIdx.x * kPerBlock + threadIdx.x;
@@ -52,6 +52,12 @@ copy_vec(const int4* __restrict__ src, int4* __restrict__ dst, unsigned n4) {
     if (j < n4) dst[j] = r[k];
   }
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// Whether the redesign refuses n values: fewer than 128, not a multiple of
+// 128, or more than its 32-bit indices reach.
+inline bool bad_length(long long n) {
+  return n < 128 || n % 128 != 0 || n / 4 > kMaxN4;
 }
 
 // Blocks for n4 int4s: the fewest that cover them.

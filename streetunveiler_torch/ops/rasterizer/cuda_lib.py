@@ -202,7 +202,8 @@ def load_library() -> ctypes.CDLL:
             lib.su_micro_floor.restype = i32
             # T7/T8: the redesign (su_identity) and the first design take
             # the same arguments; su_identity_split and su_graph_nodes
-            # serve the measurement of a copy in a CUDA graph
+            # (identity_split.cu) serve chip_smoke.py's measurement of a
+            # copy in a CUDA graph
             for name in ("su_identity", "su_identity_first"):
                 getattr(lib, name).argtypes = [vp, vp, ctypes.c_longlong, i32,
                                                vp]

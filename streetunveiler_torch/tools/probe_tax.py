@@ -48,10 +48,6 @@ LANES = 128
 VARIANTS = (("args", 1), ("dyn", 1), ("launder", 1), ("dyn", 2),
             ("args", 2))
 DESIGNS = ("redesign", "first")
-# su_identity_split's kinds: an empty kernel, the first design's body on a
-# grid of the caller's, the redesign launched without the programmatic
-# attribute
-SPLIT_KINDS = {"empty": 0, "first_body": 1, "redesign_plain_launch": 2}
 
 
 def pad_lanes(x):
@@ -95,24 +91,6 @@ def copy_cuda(xp, key="identity", design="redesign"):
     rc = entry(xp.data_ptr(), out.data_ptr(), xp.numel(), index, stream)
     cuda_lib.check(rc, f"identity launch ({design})")
     cuda_lib.launch_counts[key] += 1
-    return out
-
-
-def _split_launch(kind, xp, blocks=0, threads=0, key="identity"):
-    """One launch of ``su_identity_split``'s ``kind`` (SPLIT_KINDS) on the
-    padded xp, for the measurement of a copy in a CUDA graph: the empty
-    kernel and the first design's body on <<<blocks, threads>>>, the
-    redesign without its programmatic launch. Returns the copy (xp itself
-    for the empty kernel, which copies nothing); a copy counts under
-    ``key``."""
-    index, stream = _check_padded(xp)
-    out = xp if kind == "empty" else torch.empty_like(xp)
-    rc = cuda_lib.load_library().su_identity_split(
-        SPLIT_KINDS[kind], blocks, threads, xp.data_ptr(), out.data_ptr(),
-        xp.numel(), index, stream)
-    cuda_lib.check(rc, f"identity split launch ({kind})")
-    if kind != "empty":
-        cuda_lib.launch_counts[key] += 1
     return out
 
 

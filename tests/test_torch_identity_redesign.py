@@ -12,38 +12,30 @@ the host can see of it.
   ``src`` or store to ``dst``, and lets the next launch go only after its
   last store.
 * ``copy_cuda(design=...)``: unknown designs refused, a CPU tensor refused
-  under both designs and by the measurement entry (no plain fallback).
-* The CPU path (the plain version) still equals ``_pallas_identity`` /
-  ``pallas_identity`` of the JAX tools in interpret mode.
+  under both designs and by ``chip_smoke.py``'s measurement entry
+  ``split_launch`` (no plain fallback).
+
+The CPU path against the JAX tools in interpret mode is
+``tests/test_torch_probes.py``'s.
 
 The kernels themselves are held bit for bit against each other and the
 input by ``chip_smoke.py`` on a card (``identity_redesign``).
 """
 
-import functools
 import os
 import re
 import sys
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "tools"))
 
+import chip_smoke  # noqa: E402
 from streetunveiler_torch.ops.rasterizer import cuda_lib  # noqa: E402
-from streetunveiler_torch.tools import probe_compose4, probe_tax  # noqa: E402
-
-# the JAX tools put their own directories first on the import path when
-# imported; the path is put back as it was
-_saved_path = list(sys.path)
-import probe_compose4 as jcompose4  # noqa: E402
-import probe_tax as jtax  # noqa: E402
-sys.path[:] = _saved_path
+from streetunveiler_torch.tools import probe_tax  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -124,30 +116,6 @@ def test_copy_cuda_refuses():
     with pytest.raises(ValueError, match="design"):
         probe_tax.copy_cuda(x, design="sm90")
     with pytest.raises(ValueError, match="CUDA"):
-        probe_tax._split_launch("empty", x, 1, 32)
-    assert set(probe_tax.SPLIT_KINDS) == {"empty", "first_body",
-                                          "redesign_plain_launch"}
-
-
-@pytest.fixture
-def interpret(monkeypatch):
-    monkeypatch.setattr(pl, "pallas_call",
-                        functools.partial(pl.pallas_call, interpret=True))
-
-
-@pytest.mark.parametrize("n", [128, 4801])
-def test_cpu_path_matches_pallas_identity(interpret, n):
-    x = np.random.default_rng(n).integers(-2 ** 31, 2 ** 31 - 1, n,
-                                          dtype=np.int32)
-    r = x[::-1].copy()
-    cuda_lib.reset_launch_counts()
-    got = probe_tax.identity_copy(torch.as_tensor(x))
-    stack = probe_compose4.identity_copy_stack(torch.as_tensor(x),
-                                               torch.as_tensor(r))
-    assert not any(cuda_lib.launch_counts.values())
-    np.testing.assert_array_equal(
-        got.numpy(), np.array(jtax._pallas_identity(jnp.asarray(x))))
-    want = jcompose4.pallas_identity(jnp.asarray(x), jnp.asarray(r))
-    assert len(stack) == len(want) == 2
-    for g, w in zip(stack, want):
-        np.testing.assert_array_equal(g.numpy(), np.array(w))
+        chip_smoke.split_launch(torch, "empty", x, 1, 32)
+    assert set(chip_smoke.SPLIT_KINDS) == {"empty", "first_body",
+                                           "redesign_plain_launch"}

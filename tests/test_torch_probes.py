@@ -78,7 +78,7 @@ def interpret(monkeypatch):
                         functools.partial(pl.pallas_call, interpret=True))
 
 
-@pytest.mark.parametrize("n", [1000, 1024])
+@pytest.mark.parametrize("n", [1000, 1024, 4801])
 def test_identity_copy_matches_pallas_identity(interpret, n):
     x = np.random.default_rng(n).integers(-2 ** 31, 2 ** 31 - 1, n,
                                           dtype=np.int32)
