@@ -88,9 +88,10 @@ drives the two paths of the port on the 300k-surfel street scene at
   10 and their shares, T6's library composite (``micro_floor_redesign``);
 * T7/T8's copy redesigned (phase group 16): what a copy costs in a CUDA
   graph against ``clone``'s memcpy node, split (an empty kernel, the
-  first design's body on other grids, the redesign with and without its
-  programmatic launch, the launch floor; the graph nodes of each,
-  ``identity_gap_split``), then ``csrc/identity_sm90.cuh`` bit for bit
+  first design's body on other grids, the redesign, the launch floor;
+  the graph nodes of each, ``identity_gap_split``), the same on the
+  probes' own pad, copy and slice (``identity_path``), then
+  ``csrc/identity_sm90.cuh`` bit for bit
   against its first design and the input at many lengths, both designs
   and ``clone`` in turns at the probes' sizes, ptxas and the bound
   (``identity_redesign``).
@@ -816,9 +817,9 @@ def untimed_steps(torch, state, cam, cap, bg, gt, gt_sem, opt,
     return state, opt_state, losses, overflow
 
 
-def densify_full_capacity(torch, state, opt_state, opt, seed=0):
-    """densify_and_prune at full capacity with a generator from ``seed``,
-    the gradient threshold at the 90th percentile of the nonzero accumulated
+def densify_full_capacity(torch, state, opt_state, opt):
+    """densify_and_prune at full capacity with a seeded generator, the
+    gradient threshold at the 90th percentile of the nonzero accumulated
     screen gradients, so that thousands of surfels want to clone or split:
     nothing can be placed, so no split parent may be pruned. Returns
     (state, opt_state, threshold, surfels at or above it)."""
@@ -826,7 +827,7 @@ def densify_full_capacity(torch, state, opt_state, opt, seed=0):
     grads = state.grad_accum / state.denom.clamp(min=1)
     threshold = float(torch.quantile(grads[grads > 0], 0.9))
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
+    gen.manual_seed(0)
     d_state, mu, nu = densify_and_prune(
         state, opt_state.mu, opt_state.nu, threshold, opt.opacity_cull,
         None, generator=gen, percent_dense=opt.percent_dense)
@@ -834,19 +835,20 @@ def densify_full_capacity(torch, state, opt_state, opt, seed=0):
             int((grads >= threshold).sum()))
 
 
-# The deterministically trained states of the late checks: name →
-# (training steps, densify seed). "" is the training phases' own schedule,
-# checked in full; the others show the margin on other trained states,
-# with fewer T1/T2 variants (late_trained_check)
-TRAINED_STATES = {"": (TRAIN_STEPS + 1, 0), "seed1": (TRAIN_STEPS + 1, 1),
-                  "steps11": (11, 2)}
+# The deterministically trained states of the late checks: name → training
+# steps. "" is the training phases' own schedule, checked in full; the
+# others show the margin on other trained states, with fewer T1/T2
+# variants (late_trained_check). Another densify seed gives no other
+# state: at full capacity densify places nothing, and its generator draws
+# nothing
+TRAINED_STATES = {"": TRAIN_STEPS + 1, "steps16": 16, "steps11": 11}
 
 
 def deterministic_trained_state(torch, state, cam, cap, bg, gt, gt_sem,
                                 name=""):
     """A trained state that repeats from run to run, for the late checks:
     ``untimed_steps`` and ``densify_full_capacity`` on a ``state_copy`` of
-    ``state`` with the steps and densify seed of TRAINED_STATES[name], all
+    ``state`` with the steps of TRAINED_STATES[name], all
     under ``torch.use_deterministic_algorithms(True, warn_only=True)`` (the
     previous setting restored after), so that the record scatter's
     ``index_add_`` sums each surfel's duplicates in a fixed order and not
@@ -858,7 +860,7 @@ def deterministic_trained_state(torch, state, cam, cap, bg, gt, gt_sem,
     import warnings
     from streetunveiler_torch.config import OptimizationParams
     opt = OptimizationParams()
-    steps, seed = TRAINED_STATES[name]
+    steps = TRAINED_STATES[name]
     prev = (torch.are_deterministic_algorithms_enabled(),
             torch.is_deterministic_algorithms_warn_only_enabled())
     t_start = time.perf_counter()
@@ -870,14 +872,14 @@ def deterministic_trained_state(torch, state, cam, cap, bg, gt, gt_sem,
                 torch, state_copy(state), cam, cap, bg, gt, gt_sem, opt,
                 steps)
             trained, opt_state, threshold, high = densify_full_capacity(
-                torch, trained, opt_state, opt, seed)
+                torch, trained, opt_state, opt)
             torch.cuda.synchronize()
     finally:
         torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
     finite = finite_state(torch, trained, opt_state)
     alive = int(trained.num_alive)
     emit("trained_state" + (f"_{name}" if name else ""), steps=steps,
-         iteration0=TRAIN_ITER0, first_step_nq=12, densify_seed=seed,
+         iteration0=TRAIN_ITER0, first_step_nq=12,
          losses=losses, overflow=overflow, finite=finite,
          grad_threshold=threshold, high_gradient=high, alive=alive,
          param_sums={f.name: float(getattr(trained.params, f.name).double()
@@ -3240,9 +3242,8 @@ GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
                     4: "graph", 5: "empty", 6: "wait_event",
                     7: "event_record", 10: "mem_alloc", 11: "mem_free"}
 # su_identity_split's kinds: an empty kernel, the first design's body on a
-# grid of the caller's, the redesign launched without the programmatic
-# attribute
-SPLIT_KINDS = {"empty": 0, "first_body": 1, "redesign_plain_launch": 2}
+# grid of the caller's
+SPLIT_KINDS = {"empty": 0, "first_body": 1}
 # a copy's share of its byte bound above this means its bytes did not all
 # come from and go to HBM (the source was still in L2): the time is not
 # the bound case
@@ -3251,10 +3252,9 @@ SHARE_OF_BOUND_MAX = 1.05
 
 def split_launch(torch, kind, xp, blocks=0, threads=0, key="identity"):
     """One launch of ``su_identity_split``'s ``kind`` (SPLIT_KINDS) on the
-    padded int32 CUDA tensor xp: the empty kernel and the first design's
-    body on <<<blocks, threads>>>, the redesign without its programmatic
-    launch. Returns the copy (xp itself for the empty kernel, which copies
-    nothing); a copy counts under ``key``."""
+    padded int32 CUDA tensor xp: the empty kernel or the first design's
+    body on <<<blocks, threads>>>. Returns the copy (xp itself for the
+    empty kernel, which copies nothing); a copy counts under ``key``."""
     from streetunveiler_torch.ops.rasterizer import cuda_lib
     from streetunveiler_torch.tools import probe_tax
     index, stream = probe_tax._check_padded(xp)
@@ -3329,14 +3329,13 @@ def identity_phases(torch, off, surf, ptxas):
     CUDA graph of 20 calls, against ``clone`` in turns (``graph_turns``),
     the first design, an empty kernel on its grid and on <<<1, 32>>>, its
     body on one block and on the fewest blocks of 1,024 threads, the
-    redesign launched without and with its programmatic attribute, the
-    one-element ``fill_`` of ``launch_floor_ms``; and which graph nodes
-    ``clone`` and both designs become. ``identity_path``: the probes'
-    own sequence, pad then copy then slice (``identity_copy_cuda``,
-    ``identity_copy_stack_cuda``), with each design, the redesign without
-    its programmatic launch, and the plain version (pad, ``clone``,
-    slice), all in turns (``graph_rounds``), and the graph nodes and edges
-    of the redesign's. ``identity_redesign``: both designs bit for bit
+    redesign, the one-element ``fill_`` of ``launch_floor_ms``; and which
+    graph nodes ``clone`` and both designs become. ``identity_path``: the
+    probes' own sequence, pad then copy then slice
+    (``identity_copy_cuda``, ``identity_copy_stack_cuda``), with each
+    design and the plain version (pad, ``clone``, slice), all in turns
+    (``graph_rounds``), and the graph nodes and edges of the
+    redesign's. ``identity_redesign``: both designs bit for bit
     against each other and the input (what ``clone`` gives) at every
     length of a list, the padded tile_offsets, sorted_surfel and T7's
     stack of sorted_surfel and its reverse; both designs and ``clone`` in
@@ -3363,8 +3362,6 @@ def identity_phases(torch, off, surf, ptxas):
             torch, "first_body", pad, 1, 256),
         **{f"first_body_{fewest}x1024": lambda: split_launch(
             torch, "first_body", pad, fewest, 1024)},
-        redesign_plain_launch=lambda: split_launch(
-            torch, "redesign_plain_launch", pad),
         redesign=lambda: probe_tax.copy_cuda(pad),
         fill_floor=lambda: one.fill_(1.0))
     cand = {}
@@ -3382,15 +3379,13 @@ def identity_phases(torch, off, surf, ptxas):
          first_design_grid=[first_blocks, 256], candidates=cand,
          graph_nodes=nodes, gap_ms=gap, empty_node_minus_clone_ms=empty_gap,
          gap_is_node_type=empty_gap >= gap,
-         overlap_gain_ms=cand["redesign_plain_launch"]["ms"]["median"]
-         - cand["redesign"]["ms"]["median"],
+         redesign_gap_ms=cand["redesign"]["median_minus_clone"],
          note="each candidate and clone replayed in turns (graph_turns: 8 "
               "rounds of candidate, clone, clone, candidate, 20 calls a "
               "graph, ms a call); gap_ms: the first design's median minus "
               "clone's; gap_is_node_type: the empty kernel on the first "
               "design's grid alone is slower than clone by the whole gap; "
-              "overlap_gain_ms: the redesign's median launched without "
-              "minus with its programmatic attribute")
+              "redesign_gap_ms: the redesign's median minus clone's")
 
     # ---- the probes' own sequence: the pad's torch.cat before the copy
     n = off.numel()
@@ -3410,26 +3405,20 @@ def identity_phases(torch, off, surf, ptxas):
         t = graph_rounds(torch, dict(
             first_design=wrap(lambda x: probe_tax.copy_cuda(x, key,
                                                             "first")),
-            redesign=lambda: own(off),
-            redesign_plain_launch=wrap(lambda x: split_launch(
-                torch, "redesign_plain_launch", x, key=key)),
-            clone=lambda: plain(off)), replayed)
+            redesign=lambda: own(off), clone=lambda: plain(off)), replayed)
         med = {k: statistics.median(v) for k, v in t.items()}
         path[name] = dict(
             **{k: turns_summary(v) for k, v in t.items()},
             redesign_minus_clone=med["redesign"] - med["clone"],
             first_design_minus_clone=med["first_design"] - med["clone"],
-            overlap_gain_ms=med["redesign_plain_launch"] - med["redesign"],
             graph_nodes=graph_nodes(torch, lambda: own(off)))
     emit("identity_path", values=n, path=path,
          note="each function captured as 20 calls in one CUDA graph, the "
-              "graphs replayed in the turns first, new, new without the "
-              "programmatic attribute, clone and back for 8 rounds (ms a "
-              "call): T8 pad_lanes (torch.cat), copy, slice; T7 "
-              "stack_lanes, copy, unstack; clone the plain version of each "
-              "on the card; overlap_gain_ms: the redesign launched without "
-              "minus with its programmatic attribute; graph_nodes: the "
-              "redesign's sequence, 3 calls")
+              "graphs replayed in the turns first, new, clone, clone, new, "
+              "first for 8 rounds (ms a call): T8 pad_lanes (torch.cat), "
+              "copy, slice; T7 stack_lanes, copy, unstack; clone the plain "
+              "version of each on the card; graph_nodes: the redesign's "
+              "sequence, 3 calls")
 
     # ---- bits: every design against the other and the input
     surf_pad = probe_tax.pad_lanes(surf)
@@ -3764,7 +3753,7 @@ def main():
     late_state = state_copy(state)
     # and trained ones that repeat from run to run: the training phases'
     # untimed steps under the deterministic mode, on other copies (the
-    # phases' own schedule, another densify seed, fewer steps)
+    # phases' own schedule, and fewer steps)
     trained = {name: deterministic_trained_state(torch, state, cam, cap, bg,
                                                  gt, gt_sem, name)
                for name in TRAINED_STATES}

@@ -12,7 +12,7 @@
 // What bounds it on an H100: bytes, n * 4 read and n * 4 written; at the
 // probes' sizes (tens of kB) the launch dominates. Two designs:
 // su_identity is the redesign (identity_sm90.cuh: a grid that covers n
-// once, a programmatic launch); su_identity_first the first design, a
+// once, two int4s a thread); su_identity_first the first design, a
 // grid-stride loop of 16-byte loads and stores with 64-bit indices.
 // The measurement of a copy in a CUDA graph against `clone`'s memcpy node
 // lives apart, in identity_split.cu.
@@ -29,8 +29,7 @@ extern "C" int su_identity(const int* src, int* dst, long long n, int device,
   if (su_copy::bad_length(n)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = su_copy::launch(src, dst, n / 4, true, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
+  su_copy::launch(src, dst, n / 4, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

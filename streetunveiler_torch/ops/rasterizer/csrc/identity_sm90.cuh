@@ -2,24 +2,17 @@
 // multiple of 128 (identity.cu's su_identity; the first design is
 // su_identity_first there).
 //
-// At the probes' size (tile_offsets padded to 4,864 values, 19,456 bytes)
-// a copy in a CUDA graph costs the launch and one load-then-store round
-// trip, and `clone` (a memcpy node) beat the first design's grid-stride
-// loop (PERF.md). This design does two things about it:
+// The grid covers n exactly once: each thread moves kVec int4s at
+// kThreads apart (all its loads before any store), 32-bit indices, no
+// loop and so no loop test, a guard on the last block's tail only.
 //
-// * the grid covers n exactly once: each thread moves kVec int4s at
-//   kThreads apart (all loads before any store), 32-bit indices, no loop
-//   and so no loop test, a guard on the last block's tail only; alone,
-//   this body still trails the memcpy node;
-// * a programmatic launch (cudaLaunchAttributeProgrammaticStreamSerialization):
-//   the kernel may start while the kernel before it in the stream is
-//   still running, and waits (griddepcontrol.wait) for that kernel's
-//   completion and memory before it touches src or dst, so its launch
-//   and setup overlap the kernel before. Each thread lets the next
-//   programmatic launch go (griddepcontrol.launch_dependents) after its
-//   stores, so the next such kernel's launch overlaps this grid's drain.
-//   Launched without the attribute, the kernel starts after the kernel
-//   before has completed, and the wait returns at once.
+// At the probes' size (tile_offsets padded to 4,864 values, 19,456
+// bytes) a copy in a CUDA graph costs its kernel node and one
+// load-then-store round trip; `clone` there is a memcpy node, and this
+// body trails it by about 0.1 µs in a graph of copies (PERF.md). A
+// programmatic launch won that back only when the kernel before it was
+// another such copy: after the pad's torch.cat, as on the probes' path,
+// it lost 0.2 µs, and it was dropped.
 //
 // At the street's sorted_surfel (1,352,064 values, 5.4 MB) the copy is
 // bound by bytes: 2 · 4 · n over the card's memory rate.
@@ -38,7 +31,6 @@ constexpr long long kMaxN4 = 0xFFFFFFFFll - kPerBlock;
 
 static __global__ void __launch_bounds__(kThreads)
 copy_vec(const int4* __restrict__ src, int4* __restrict__ dst, unsigned n4) {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
   const unsigned i = blockIdx.x * kPerBlock + threadIdx.x;
   int4 r[kVec];
 #pragma unroll
@@ -51,7 +43,6 @@ copy_vec(const int4* __restrict__ src, int4* __restrict__ dst, unsigned n4) {
     const unsigned j = i + k * kThreads;
     if (j < n4) dst[j] = r[k];
   }
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
 // Whether the redesign refuses n values: fewer than 128, not a multiple of
@@ -60,26 +51,13 @@ inline bool bad_length(long long n) {
   return n < 128 || n % 128 != 0 || n / 4 > kMaxN4;
 }
 
-// Blocks for n4 int4s: the fewest that cover them.
-inline unsigned blocks(long long n4) {
-  return (unsigned)((n4 + kPerBlock - 1) / kPerBlock);
-}
-
-// Launch copy_vec on n4 int4s, programmatic or not. Returns the launch's
-// error.
-inline cudaError_t launch(const int* src, int* dst, long long n4,
-                          bool programmatic, cudaStream_t stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks(n4));
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = programmatic ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, copy_vec, reinterpret_cast<const int4*>(src),
-                            reinterpret_cast<int4*>(dst), (unsigned)n4);
+// Launch copy_vec on n4 int4s, the fewest blocks that cover them.
+inline void launch(const int* src, int* dst, long long n4,
+                   cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((n4 + kPerBlock - 1) / kPerBlock);
+  copy_vec<<<blocks, kThreads, 0, stream>>>(
+      reinterpret_cast<const int4*>(src), reinterpret_cast<int4*>(dst),
+      (unsigned)n4);
 }
 
 }  // namespace su_copy

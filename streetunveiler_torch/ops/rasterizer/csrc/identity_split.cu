@@ -6,7 +6,6 @@
 #include <cuda_runtime.h>
 
 #include "identity_first.cuh"
-#include "identity_sm90.cuh"
 
 namespace {
 
@@ -16,28 +15,23 @@ __global__ void empty_kernel() {}
 
 // The parts of a copy in a graph, for the measurement: kind 0 an empty
 // kernel at <<<blocks, threads>>> (src, dst and n unused); kind 1 the
-// first design's body at <<<blocks, threads>>>, threads up to 1,024;
-// kind 2 the redesign launched without the programmatic attribute.
+// first design's body at <<<blocks, threads>>>, threads up to 1,024, on
+// n int32 values (a positive multiple of 128).
 extern "C" int su_identity_split(int kind, int blocks, int threads,
                                  const int* src, int* dst, long long n,
                                  int device, void* stream) {
-  if (kind < 0 || kind > 2 || (kind < 2 && (blocks < 1 || threads < 1 ||
-                                            threads > 1024)) ||
-      (kind > 0 && su_copy::bad_length(n)))
+  if (kind < 0 || kind > 1 || blocks < 1 || threads < 1 || threads > 1024 ||
+      (kind == 1 && (n < 128 || n % 128 != 0)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (kind == 0) {
+  if (kind == 0)
     empty_kernel<<<blocks, threads, 0, s>>>();
-  } else if (kind == 1) {
+  else
     su_copy::copy_int4<1024><<<blocks, threads, 0, s>>>(
         reinterpret_cast<const int4*>(src), reinterpret_cast<int4*>(dst),
         n / 4);
-  } else {
-    err = su_copy::launch(src, dst, n / 4, false, s);
-    if (err != cudaSuccess) return (int)err;
-  }
   return (int)cudaGetLastError();
 }
 

@@ -8,8 +8,7 @@ with zeros to [⌈n/128⌉, 128], copies it and returns its first n values,
 as the tool's does. Its plain version is a clone of the padded view.
 The copy has two designs with the same bits (``DESIGNS``): ``redesign``
 (the default, ``csrc/identity_sm90.cuh``: a grid that covers the values
-once, two 16-byte loads and stores a thread, launched programmatically so
-that its launch overlaps the kernel before it) and ``first`` (the first
+once, two 16-byte loads and stores a thread) and ``first`` (the first
 design, a grid-stride loop).
 
 The TPU's blend read seven visit arrays through scalar prefetch and ran
