@@ -96,11 +96,30 @@ drives the two paths of the port on the 300k-surfel street scene at
   and ``clone`` in turns at the probes' sizes, ptxas and the bound
   (``identity_redesign``).
 
+* the render and unveil paths (phase group 17): the render CLI
+  (``streetunveiler_torch.cli.render --semantics``) on the late training
+  CLI's model dir, its held-out PSNR against the training CLI's
+  (``render_cli_synthetic``); the unveil CLI (``cli.unveil
+  --semantic_class vehicle --all --inpainter diffuse``,
+  ``unveil_cli_synthetic``) and the render CLI again, which must render
+  the unveiled round (``render_cli_synthetic_unveiled``); the render
+  CLI's view at full width, timed and profiled (``render_full_width``),
+  a TSDF fusion of 4 street views at ``mesh_res`` 512 with its stages
+  timed apart (``tsdf_full_width``), and the delta re-optimization step
+  on the street with its vehicles removed (``reoptimize_full_width``),
+  each path's K1/K2/K3 launches read around its own run.
+
 The late full-width checks (gated K1/K2, T1 and T2 of both designs) run
 on two late streams: the street state as built (``*_late_full_width``)
 and a state trained by the training phases' untimed steps under the
 deterministic mode (``trained_state``, ``*_late_trained_full_width``),
-both the same in every run.
+both the same in every run. On the 16-step trained state
+``c1_split_late_trained_steps16`` splits gated K2's largest per-surfel
+``scaling`` error against its tolerance to a duplicate and a pixel, with
+a float64 reference of that pair (ROADMAP C.1).
+
+``python3 chip_smoke.py --only c1,paths`` runs the build, the street
+scene and those groups alone (a quicker run while working on them).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last two lines are the kernels table and
@@ -112,6 +131,7 @@ result.
 """
 
 import collections
+import contextlib
 import json
 import os
 import statistics
@@ -156,8 +176,15 @@ FLIP_FRACTION = 1e-3     # knife-edge pixels allowed at t_eps > 0
 GRAD_ATOL_REL, GRAD_RTOL, ROW_TOL_REL = 2e-4, 1e-3, 1e-3
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started
+    (``at_s``)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
 
 
 def small_scene(torch, n=300, seed=0, w=64, h=48, f=50.0):
@@ -1021,6 +1048,11 @@ def late_phases(torch, state, cam, cap, bg, gt, gt_sem, trained):
             torch, kernel, late_loss(st),
             "late_trained" + (f"_{name}" if name else "") + "_full_width",
             save_failed=True)
+    # C.1: the 16-step state's gated K2 scaling error, split to a pair
+    c1 = None
+    if C1_STATE in trained:
+        c1 = c1_split(torch, kernel, trained[C1_STATE], cam, gt, bg, gt_sem,
+                      sky, opt, cap, f"c1_split_late_trained_{C1_STATE}")
     for x in (a, *a_tr.values()):
         if (x[8], x[9]) != (12, G_LATE):
             raise AssertionError(f"the late loss ran the blend at "
@@ -1099,7 +1131,384 @@ def late_phases(torch, state, cam, cap, bg, gt, gt_sem, trained):
                 k2=dict(k2_full, max_abs_err=max(
                     k2_full["max_abs_err"], k2_dense["max_abs_err"],
                     *(k["max_abs_err"] for k in k2_tr.values()))),
-                launches=launches, args=a, trained_args=a_tr)
+                launches=launches, args=a, trained_args=a_tr, c1=c1)
+
+
+# ---- C.1 split: gated K2's per-surfel scaling error on the 16-step state
+C1_STATE = "steps16"
+# margins (relative) below which a pair counts as sitting at a gate: a few
+# hundred f32 ulps, what K2's recompute and the plain version's pair math
+# can round apart
+C1_EDGE_MARGIN = 1e-5
+# K2's assembly of record rows 0-5 from the cross products' gradients
+# (csrc/blend_bwd_sm90.cuh, d1x .. d3y): each row's f32 terms, as
+# (sign, factor, factor) over r1..r3 and gA, gB, gC (ddet·A for d3x/d3y)
+C1_ROW_TERMS = {
+    0: ((1, "r2y", "gaz"), (-1, "r2z", "gay"), (1, "gcy", "r3z"),
+        (-1, "gcz", "r3y")),
+    1: ((1, "gay", "r1z"), (-1, "gaz", "r1y"), (1, "r3y", "gbz"),
+        (-1, "r3z", "gby")),
+    2: ((1, "ddet", "ax"), (1, "gby", "r2z"), (-1, "gbz", "r2y"),
+        (1, "r1y", "gcz"), (-1, "r1z", "gcy")),
+    3: ((1, "r2z", "gax"), (-1, "r2x", "gaz"), (1, "gcz", "r3x"),
+        (-1, "gcx", "r3z")),
+    4: ((1, "gaz", "r1x"), (-1, "gax", "r1z"), (1, "r3z", "gbx"),
+        (-1, "r3x", "gbz")),
+    5: ((1, "ddet", "ay"), (1, "gbz", "r2x"), (-1, "gbx", "r2z"),
+        (1, "r1z", "gcx"), (-1, "r1x", "gcz")),
+}
+
+
+def c1_row_terms(geo, d_alpha, d_t, alpha, px, py):
+    """K2's terms of record rows 0-5 for one pair in float64: ``geo`` the
+    record's rows 0-9, ``d_alpha`` and ``d_t`` the pair's α and depth
+    cotangents, ``alpha`` its α (unclamped, ρ from the plane). The chain
+    is K2's own: dρ = dα·(−α/2), dk from ρ = |k_xy|²/k_z² and
+    t = det/k_z, dA = dk + ddet·r3, dB = px·dk, dC = py·dk. Returns
+    {row: [terms]}."""
+    r1x, r2x, r3x, r1y, r2y, r3y, c2dx, c2dy, z = (float(v) for v in geo[:9])
+    r1z, r2z, r3z = c2dx * z, c2dy * z, z
+    ax, ay, az = (r1y * r2z - r1z * r2y, r1z * r2x - r1x * r2z,
+                  r1x * r2y - r1y * r2x)
+    b = (r2y * r3z - r2z * r3y, r2z * r3x - r2x * r3z, r2x * r3y - r2y * r3x)
+    c = (r3y * r1z - r3z * r1y, r3z * r1x - r3x * r1z, r3x * r1y - r3y * r1x)
+    det = r3x * ax + r3y * ay + r3z * az
+    kx, ky, kz = (ax + px * b[0] + py * c[0], ay + px * b[1] + py * c[1],
+                  az + px * b[2] + py * c[2])
+    rcp = 1.0 / kz
+    d_rho = d_alpha * (-0.5 * alpha)
+    dk = (d_rho * 2 * kx * rcp ** 2, d_rho * 2 * ky * rcp ** 2,
+          -2 * d_rho * (kx * kx + ky * ky) * rcp ** 3
+          - d_t * det * rcp ** 2)
+    ddet = d_t * rcp
+    v = dict(r1x=r1x, r2x=r2x, r3x=r3x, r1y=r1y, r2y=r2y, r3y=r3y, r1z=r1z,
+             r2z=r2z, r3z=r3z, ax=ax, ay=ay, ddet=ddet,
+             gax=dk[0] + ddet * r3x, gay=dk[1] + ddet * r3y,
+             gaz=dk[2] + ddet * r3z, gbx=px * dk[0], gby=px * dk[1],
+             gbz=px * dk[2], gcx=py * dk[0], gcy=py * dk[1], gcz=py * dk[2])
+    return {row: [sg * v[f] * v[g] for sg, f, g in terms]
+            for row, terms in C1_ROW_TERMS.items()}
+
+
+def c1_split(torch, kernel, state, cam, gt, bg, gt_sem, sky, opt, cap,
+             label):
+    """Split gated K2's per-surfel ``scaling`` error on ``state``'s late
+    loss down to a surfel, a duplicate and a pixel (a pair).
+
+    The gradients of the late loss run through K2 and through the plain
+    version under the deterministic mode (the scatter's sums in a fixed
+    order, so that the two sides differ by the blend backward alone). The
+    surfel and axis whose error is largest against the check's tolerance
+    (atol GRAD_ATOL_REL·max|g| + rtol GRAD_RTOL·|g|) is split: the record
+    gradient of each of its duplicates through the surfel's own Jacobian
+    d(record rows 0-9)/d(scaling) (its preprocess alone, on the card), and
+    for its worst duplicate each pixel of the tile, by running K2 and the
+    plain version on the one-tile stream with the cotangent of that pixel
+    alone (both are linear in the cotangent). Each pair reports its raw α
+    against the α gate (1/255) and the clamp (0.99), the nearest α gate
+    over the pixel's chain up to its last kept pair, and the nearest
+    transmittance to t_eps; a margin below C1_EDGE_MARGIN is a knife
+    edge."""
+    from streetunveiler_torch import renderer
+    from streetunveiler_torch.ops.rasterizer.blendmath import (
+        map_depth, pair_alpha_depth)
+    from streetunveiler_torch.ops.rasterizer.kernel import (PIX, Q_ROW0,
+                                                            TILE_H, TILE_W,
+                                                            ch_for,
+                                                            gate_bits)
+    from streetunveiler_torch.ops.rasterizer.preprocess import \
+        preprocess_surfels
+    from streetunveiler_torch.ops.rasterizer.types import (ALPHA_EPS,
+                                                           ALPHA_MAX)
+    from streetunveiler_torch.ops.rasterizer import tiles
+
+    def loss_fn():
+        loss, g, _ = loss_grads(torch, state, cam, gt, bg, opt, LATE_ITER0,
+                                cap, gt_sem, True, sky)
+        return loss, g
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with capture_blend_backward(kernel) as cb:
+            _, gk = loss_fn()
+        with capture_blend_backward(kernel, plain=True):
+            _, gp = loss_fn()
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    a = tuple(t.detach() if torch.is_tensor(t) else t for t in cb.args)
+    recT, off, tx, ty, settings, acc, lk, dacc, nq, n_gates = a
+    gk, gp = gk["scaling"], gp["scaling"]
+    err = (gk - gp).abs()
+    tol = GRAD_ATOL_REL * float(gp.abs().max()) + GRAD_RTOL * gp.abs()
+    ratio = err / tol
+    flat = int(ratio.reshape(-1).argmax())
+    s, ax = divmod(flat, gk.shape[1])
+    worst_abs = int(err.reshape(-1).argmax())
+
+    # the surfel's duplicates in the stream (the loss's own binning)
+    b = renderer.bin_camera(cam, state, duplicate_capacity=cap)
+    filled = int(off[-1])
+    dups = (b.sorted_surfel[:filled] == s).nonzero()[:, 0]
+    dup_tiles = torch.searchsorted(off.long(), dups, right=True) - 1
+
+    # d(record rows 0-9 of surfel s)/d(scaling[s]): its preprocess alone
+    sl = slice(s, s + 1)
+    with torch.no_grad():
+        rot = state.get_rotation()[sl]
+        opac = state.get_opacity()[sl, 0]
+
+    def rec_of(scal):
+        sur = preprocess_surfels(state.params.xyz[sl].detach(),
+                                 torch.exp(scal), rot, opac,
+                                 torch.zeros((1, 3), device="cuda"),
+                                 cam.w2c, cam.K, settings)
+        return kernel.pack_geometry_T(sur, 1, pad_column=False)[:Q_ROW0, 0]
+    scal = state.params.scaling[sl].detach()
+    rec_equal = bool(len(dups)) and torch.equal(rec_of(scal),
+                                                recT[:Q_ROW0, dups[0]])
+    jac = torch.autograd.functional.jacobian(rec_of, scal)[:, 0, ax]
+
+    def contrib(dgrad, cols):
+        return (jac.double()[:, None]
+                * dgrad[:Q_ROW0, cols].double()).sum(dim=0)
+    order = tiles.tile_order(off)
+    dg_k2 = kernel.blend_backward_cuda(*a, tile_order=order)
+    dg_plain = kernel.blend_backward_plain(*a)
+    torch.cuda.synchronize()
+    ck, cp = contrib(dg_k2, dups), contrib(dg_plain, dups)
+    per_dup = [dict(duplicate=int(d), tile=int(t), k2=float(x),
+                    plain=float(y), diff=float(x - y))
+               for d, t, x, y in zip(dups.tolist(), dup_tiles.tolist(),
+                                     ck, cp)]
+    i_w = int((ck - cp).abs().argmax()) if len(dups) else -1
+    d_w, t_w = (int(dups[i_w]), int(dup_tiles[i_w])) if len(dups) else (0, 0)
+
+    # the one-tile stream of the worst duplicate's tile
+    n_tiles = tx * ty
+    lo, hi = int(off[t_w]), int(off[t_w + 1])
+    off1 = torch.where(torch.arange(n_tiles + 1, device="cuda") <= t_w,
+                       torch.full_like(off, lo), torch.full_like(off, hi))
+    other = torch.arange(n_tiles, device="cuda") != t_w
+    lk1 = torch.where(other[:, None, None], torch.full_like(lk, -1), lk)
+    acc1 = acc.clone()
+    ch = ch_for(nq)
+    for g in range(n_gates):
+        acc1[other, :, ch + 4 * g + 3] = -1.0
+    a1 = (recT, off1, tx, ty, settings, acc1, lk1)
+
+    def one_tile(dacc1, plain):
+        if plain:
+            return kernel.blend_backward_plain(*a1, dacc1, nq, n_gates)
+        return kernel.blend_backward_cuda(*a1, dacc1, nq, n_gates,
+                                          tile_order=order)
+    dacc_t = torch.zeros_like(dacc)
+    dacc_t[t_w] = dacc[t_w]
+    tile_equal = torch.equal(one_tile(dacc_t, False)[:, d_w],
+                             dg_k2[:, d_w])
+
+    # every pair of the tile: raw α (before the gate and the clamp), the
+    # chains' transmittance, per pixel
+    sub = torch.arange(PIX, device="cuda")
+    px = (t_w % tx) * TILE_W + (sub % TILE_W).float() + 0.5
+    py = (t_w // tx) * TILE_H + (sub // TILE_W).float() + 0.5
+    geo = recT[:Q_ROW0, lo:hi]
+    c2dx, c2dy, z = geo[6], geo[7], geo[8]
+    m_rows = (geo[0], geo[3], c2dx * z, geo[1], geo[4], c2dy * z, geo[2],
+              geo[5], z)
+    seen = {}
+
+    def exp_seen(x):
+        seen["g"] = torch.exp(x)
+        return seen["g"]
+    alpha, _ = pair_alpha_depth(m_rows, (c2dx, c2dy), z, geo[9],
+                                geo[9] > 0, px, py, settings.znear,
+                                exp=exp_seen)                  # [S, PIX]
+    raw = geo[9][:, None] * seen["g"]
+    idx = torch.arange(lo, hi, device="cuda")[:, None]
+    lk_t = lk[t_w, :, 0].long()
+    gate_margin = (raw / ALPHA_EPS - 1.0).abs()
+    clamp_margin = (raw / ALPHA_MAX - 1.0).abs()
+    chains = [(alpha, lk_t)]
+    bits = None
+    if n_gates:
+        bits = gate_bits(recT[Q_ROW0 + nq, lo:hi], n_gates)
+        chains += [(torch.where(bits[g][:, None], alpha,
+                                torch.zeros_like(alpha)),
+                    acc[t_w, :, ch + 4 * g + 3].long())
+                   for g in range(n_gates)]
+    top = torch.stack([c[1] for c in chains]).amax(dim=0)
+    in_chain = idx <= top[None]
+    big = torch.full_like(raw, float("inf"))
+    chain_gate_margin = torch.where(in_chain, gate_margin, big).amin(dim=0)
+    t_margin = torch.full((PIX,), float("inf"), device="cuda")
+    for al, lkc in chains:
+        live = (al > 0) & (idx <= lkc[None] + 1)
+        t_after = torch.cumprod(torch.where(live, 1.0 - al,
+                                            torch.ones_like(al)), dim=0)
+        m = torch.where(live, (t_after / settings.t_eps - 1.0).abs(), big)
+        t_margin = torch.minimum(t_margin, m.amin(dim=0))
+
+    j = d_w - lo
+    lk_g = [acc[t_w, :, ch + 4 * g + 3].long() for g in range(n_gates)]
+    znear, zfar = settings.znear, settings.zfar
+
+    def pixel_f64(p):
+        """Pixel p's gradient of the record's geometry rows 0-9 in float64:
+        its blend forward (the main chain and the gated ones, kept pairs
+        up to lk and lk_g as the kernels keep them) written out, the
+        captured cotangent of its accumulator channels, autograd."""
+        g64 = recT[:, lo:hi].double()
+        geo = g64[:Q_ROW0].clone().requires_grad_(True)
+        gx, gy, gz = geo[6], geo[7], geo[8]
+        rows64 = (geo[0], geo[3], gx * gz, geo[1], geo[4], gy * gz, geo[2],
+                  geo[5], gz)
+        al, tt = pair_alpha_depth(rows64, (gx, gy), gz, geo[9], geo[9] > 0,
+                                  px[p:p + 1].double(),
+                                  py[p:p + 1].double(), znear)
+        al, tt = al[:, 0], tt[:, 0]
+        al.retain_grad()
+        mm = map_depth(tt, znear, zfar)
+        d = dacc[t_w, p].double()
+        pos = idx[:, 0]
+        parts = []
+
+        def weights(a_c, lkc):
+            keep = (a_c > 0) & (pos <= lkc)
+            one = torch.where(keep, 1.0 - a_c, torch.ones_like(a_c))
+            excl = torch.cat([torch.ones_like(one[:1]),
+                              torch.cumprod(one, 0)[:-1]])
+            w_c = torch.where(keep, a_c * excl, torch.zeros_like(a_c))
+            w_c.retain_grad()
+            parts.append((w_c, excl.detach()))
+            return w_c
+        w = weights(al, lk_t[p])
+        loss = ((d[:nq] * (g64[Q_ROW0:Q_ROW0 + nq] * w).sum(1)).sum()
+                + d[nq] * w.sum() + d[nq + 1] * (w * tt).sum()
+                + d[nq + 3] * (w * mm).sum() + d[nq + 4] * (w * mm * mm).sum())
+        for g in range(n_gates):
+            wg = weights(torch.where(bits[g], al, torch.zeros_like(al)),
+                         lk_g[g][p])
+            loss = loss + (d[ch + 4 * g] * wg.sum()
+                           + d[ch + 4 * g + 1] * (wg * mm).sum()
+                           + d[ch + 4 * g + 2] * (wg * mm * mm).sum())
+        tt.retain_grad()
+        loss.backward()
+        # dα of the pair, and its direct part Σ_chains T_excl·Ω (Ω the
+        # pair's weight cotangent): their ratio is dα's cancellation
+        direct = sum(abs(float(w_c.grad[j] * ex[j])) for w_c, ex in parts)
+        # the chain's pairs in f32 (the kernels' precision) against f64:
+        # an ill-conditioned pair (a surfel seen edge-on) moves far
+        live = (pos <= top[p]) & (al.detach() > 0)
+        dev = torch.where(live, (alpha[:, p].double() - al.detach()).abs()
+                          / al.detach().clamp(min=1e-30),
+                          torch.zeros_like(al.detach()))
+        worst = int(dev.argmax())
+        return geo.grad[:, j], float(al.grad[j]), float(tt.grad[j]), \
+            float(al.detach()[j]), direct, dict(
+                pair=worst, is_this_pair=worst == j, rel=float(dev[worst]),
+                alpha_f64=float(al.detach()[worst]),
+                alpha_f32=float(alpha[worst, p]))
+
+    pixels = ((raw[j] >= 0.5 * ALPHA_EPS)
+              | (chain_gate_margin < C1_EDGE_MARGIN)).nonzero()[:, 0]
+    rows = []
+    jac64 = jac.double()
+    for p in pixels.tolist():
+        dp = torch.zeros_like(dacc)
+        dp[t_w, p] = dacc[t_w, p]
+        rk = one_tile(dp, False)[:Q_ROW0, d_w].double()
+        rp = one_tile(dp, True)[:Q_ROW0, d_w].double()
+        r64, d_alpha, d_t, alpha64, d_alpha_direct, chain_dev = pixel_f64(p)
+        k, q = float((jac64 * rk).sum()), float((jac64 * rp).sum())
+        ref = float((jac64 * r64).sum())
+        terms = float((jac64 * r64).abs().sum())
+        # K2's assembly of rows 0-5 from the pair's f64 cotangents: the
+        # terms must sum to the f64 rows (the chain is K2's), and each
+        # row's K2 − plain difference is held against the f32 rounding
+        # bound of that assembly, 2·(n + 2)·2⁻²⁴·Σ|terms| (n products,
+        # their inputs and the sum rounded in either order)
+        row_terms = c1_row_terms(recT[:Q_ROW0, d_w].double().tolist(),
+                                 d_alpha, d_t, alpha64, float(px[p]),
+                                 float(py[p]))
+        assembly = {}
+        for row, tv in row_terms.items():
+            abs_sum = sum(abs(x) for x in tv)
+            diff_r = float(rk[row] - rp[row])
+            assembly[row] = dict(
+                terms=tv, sum_f64=sum(tv), row_f64=float(r64[row]),
+                abs_sum=abs_sum, k2_minus_plain=diff_r,
+                bound=2 * (len(tv) + 2) * 2.0 ** -24 * abs_sum,
+                diff_in_2_pow_32=diff_r / 2.0 ** -32)
+        chain_ok = all(abs(a["sum_f64"] - a["row_f64"])
+                       <= 1e-9 * a["abs_sum"] + 1e-30
+                       for a in assembly.values())
+        rows.append(dict(
+            pixel=p, row=int(py[p]), col=int(px[p]), k2=k, plain=q,
+            diff=k - q, f64=ref, terms_abs_sum=terms,
+            d_alpha_f64=d_alpha, d_alpha_direct_abs=d_alpha_direct,
+            chain_alpha_f32_vs_f64=chain_dev,
+            k2_err_over_terms=abs(k - ref) / max(terms, 1e-300),
+            plain_err_over_terms=abs(q - ref) / max(terms, 1e-300),
+            record_rows=dict(jacobian=jac.tolist(), k2=rk.tolist(),
+                             plain=rp.tolist(), f64=r64.tolist()),
+            assembly=assembly, assembly_chain_matches_f64=chain_ok,
+            rows_within_bound=all(abs(a["k2_minus_plain"]) <= a["bound"]
+                                  for a in assembly.values()),
+            rows_6_9_share=abs(float((jac64[6:] * (rk - rp)[6:]).sum()))
+            / max(abs(k - q), 1e-300),
+            alpha=float(alpha[j, p]), raw_alpha=float(raw[j, p]),
+            alpha_gate_margin=float(gate_margin[j, p]),
+            clamp_margin=float(clamp_margin[j, p]),
+            chain_alpha_gate_margin=float(chain_gate_margin[p]),
+            t_eps_margin=float(t_margin[p]), kept=bool(idx[j, 0]
+                                                       <= lk_t[p])))
+    rows.sort(key=lambda r: -abs(r["diff"]))
+    top_row = rows[0] if rows else {}
+    edge = bool(rows) and (
+        min(top_row["alpha_gate_margin"], top_row["clamp_margin"],
+            top_row["chain_alpha_gate_margin"], top_row["t_eps_margin"])
+        < C1_EDGE_MARGIN or (top_row["k2"] == 0.0) != (top_row["plain"]
+                                                       == 0.0))
+    diff_total = float(ck.sum() - cp.sum())
+    # not a gate: the split names the operation when the pair's rows 0-5
+    # differ by no more than their f32 assembly can round, the chain of
+    # that assembly is K2's (its terms sum to the f64 rows), the pair
+    # carries the surfel's whole difference and rows 6-9 carry none of it
+    rounding = bool(rows) and (
+        top_row["assembly_chain_matches_f64"]
+        and top_row["rows_within_bound"]
+        and top_row["rows_6_9_share"] <= 1e-3
+        and abs(top_row["diff"] - diff_total) <= 1e-3 * abs(diff_total))
+    verdict = ("knife_edge" if edge else "assembly_rounding" if rounding
+               else "unexplained")
+    emit(label, surfel=s, axis=ax, semantics=int(state.semantics[s]),
+         g_k2=float(gk[s, ax]), g_plain=float(gp[s, ax]),
+         err=float(err[s, ax]), tol=float(tol[s, ax]),
+         err_over_tol=float(ratio[s, ax]),
+         worst_abs=dict(surfel=worst_abs // gk.shape[1],
+                        axis=worst_abs % gk.shape[1],
+                        err=float(err.reshape(-1)[worst_abs])),
+         record_bit_equal=rec_equal, one_tile_bit_equal=tile_equal,
+         duplicates=per_dup,
+         reconstructed=dict(k2=float(ck.sum()), plain=float(cp.sum()),
+                            diff=diff_total),
+         worst_duplicate=d_w, tile=t_w, tile_length=hi - lo,
+         pixels_split=len(rows),
+         pixel_sum=dict(k2=sum(r["k2"] for r in rows),
+                        plain=sum(r["plain"] for r in rows)),
+         top_pairs=rows[:12],
+         top_pair_share_of_diff=(top_row.get("diff", 0.0) / diff_total
+                                 if diff_total else None),
+         edge_margin=C1_EDGE_MARGIN, knife_edge=edge,
+         assembly_rounding=rounding, verdict=verdict)
+    if verdict == "unexplained":
+        raise AssertionError(f"{label}: gated K2's largest per-surfel "
+                             "scaling error is neither a knife edge nor "
+                             "within the f32 rounding of its record-row "
+                             "assembly")
+    return verdict
 
 
 def bench_fwd_bwd(torch, state, cam, iters=10):
@@ -1291,7 +1700,7 @@ def reference_small_gated(torch, rasterize, settings_cls):
                              "separately gated renders")
 
 
-def train_scene_synthetic(torch, late=False):
+def train_scene_synthetic(torch, late=False, model_dir=None):
     """The training CLI on the synthetic street scene at its defaults
     (4,000 points, 12 cameras, 160x112, every 8th view held out) for 300
     iterations with densification from iteration 100 at a gradient
@@ -1300,7 +1709,9 @@ def train_scene_synthetic(torch, late=False):
     surfel count growing, and the checkpoint read back. With ``late``:
     ``--semantics --sky`` and the late phase from iteration 150
     (``--semantic_dist_from_iter 150``), the sky composited in the
-    held-out PSNR and read back from the checkpoint."""
+    held-out PSNR and read back from the checkpoint. The model dir is a
+    temporary one, or ``model_dir`` (kept for the render and unveil CLIs).
+    Returns the held-out PSNR after training."""
     import dataclasses
     from streetunveiler_torch.cli import train as cli_train
     from streetunveiler_torch.cli.common import scene_background
@@ -1325,7 +1736,8 @@ def train_scene_synthetic(torch, late=False):
     flags = (["--semantics", "--sky", "--semantic_dist_from_iter", "150"]
              if late else [])
     cuda_lib.reset_launch_counts()
-    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as tmp:
+    with (contextlib.nullcontext(model_dir) if model_dir else
+          tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR)) as tmp:
         t0 = time.perf_counter()
         state, reports = cli_train.main([
             "--model_path", tmp, "--iterations", str(iters), "--eval",
@@ -1366,6 +1778,7 @@ def train_scene_synthetic(torch, late=False):
                              "densify, did not run the late phase, or its "
                              "checkpoint (the sky included) did not read "
                              "back")
+    return dict(test_psnr=p1)
 
 
 # ---- 9. the measurement tools (streetunveiler_torch/tools/)
@@ -3502,7 +3915,416 @@ def identity_phases(torch, off, surf, ptxas):
                     "first_design"]["median"]))
 
 
-def main():
+# ---- 17. the render and unveil paths (streetunveiler_torch.cli.render,
+# .cli.unveil, mesh, pipeline/): the CLIs on the synthetic street, then
+# the render CLI's view, the TSDF fusion and the delta re-optimization at
+# full width
+# the reference's clustering and neighbourhood radii (7e-2, 4e-2, 2e-2,
+# normalized scene units) scaled by about 20 to the synthetic street,
+# whose 4,000 points lie a few tenths of a unit apart: at 4e-2 no surfel
+# but the removed ones would be trainable
+UNVEIL_FLAGS = ["--cluster_threshold", "1.5", "--min_cluster_size", "10",
+                "--key_stride", "2", "--trainable_dist", "0.8",
+                "--editable_dist", "0.4"]
+UNVEIL_REOPT = 10         # delta steps per key frame pair on the CLI
+MESH_RES = 512
+PATH_KERNELS = ("expand", "blend_fwd", "blend_bwd", "blend_fwd_gated",
+                "blend_bwd_gated")
+
+
+def path_launches(cuda_lib):
+    return {k: cuda_lib.launch_counts[k] for k in PATH_KERNELS}
+
+
+def render_cli_synthetic(torch, model_dir, label, train_test_psnr=None,
+                         unveiled_round=None):
+    """``cli.render --semantics`` on the training CLI's model dir: every
+    PNG written, finite PSNRs, a non-empty mesh before and after the
+    cluster filter, K1 and K3 launched. ``train_test_psnr``: the training
+    CLI's held-out PSNR of the same state and sky, which the render's test
+    split must repeat (within 0.01 dB: another capacity and PLY order);
+    ``unveiled_round``: the round whose checkpoint it must render."""
+    import numpy as np
+    from streetunveiler_torch.cli import render as cli_render
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    s = cli_render.main(["--model_path", model_dir, "--semantics",
+                         "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_launches(cuda_lib)
+    it_dir = f"ours_{s['iteration']}"
+    missing = []
+    for split in ("train", "test"):
+        for sub in ("renders", "gt", "depth", "normal", "semantic"):
+            d = os.path.join(model_dir, split, it_dir, sub)
+            n = len(os.listdir(d)) if os.path.isdir(d) else 0
+            if n != s[f"{split}_views"]:
+                missing.append(f"{split}/{sub}: {n}")
+    for name in ("fuse.ply", "fuse_post.ply"):
+        if not os.path.exists(os.path.join(model_dir, "train", it_dir,
+                                           name)):
+            missing.append(name)
+    psnr_ok = all(np.isfinite(s[k]) for k in ("train_psnr", "test_psnr"))
+    repeat = (None if train_test_psnr is None
+              else abs(s["test_psnr"] - train_test_psnr))
+    picked = s["unveiled"]
+    round_ok = (picked is None if unveiled_round is None else
+                picked is not None and f"instance_workspace_{unveiled_round}"
+                in picked)
+    ok = (not missing and psnr_ok and s["mesh_faces"] > 0
+          and s["post_faces"] > 0 and (repeat is None or repeat <= 0.01)
+          and round_ok and launches["expand"] > 0
+          and launches["blend_fwd"] > 0)
+    emit(label, wall_s=wall, missing=missing, **{
+        k: s[k] for k in ("iteration", "unveiled", "duplicate_capacity",
+                          "train_psnr", "test_psnr", "train_views",
+                          "test_views", "voxel_size", "mesh_vertices",
+                          "mesh_faces", "post_vertices", "post_faces",
+                          "fusion_s", "surface_nets_s", "clusters_s")},
+         train_cli_test_psnr=train_test_psnr, test_psnr_gap=repeat,
+         launches=launches)
+    if not ok:
+        raise AssertionError(f"{label}: a file is missing, a PSNR is not "
+                             "finite or differs from the training CLI's, "
+                             "the mesh is empty, the wrong checkpoint was "
+                             "rendered, or K1/K3 did not launch")
+    return launches
+
+
+def unveil_cli_synthetic(torch, model_dir):
+    """``cli.unveil --semantic_class vehicle --all --inpainter diffuse`` on
+    the training CLI's model dir: surfels removed, surfels trained beside
+    them and some of their deltas moved, masks with pixels, finite losses,
+    the unveiled PLY with the unveiled state's surfels, the final renders,
+    K1, K2 and K3 launched."""
+    import numpy as np
+    from streetunveiler_torch.cli import unveil as cli_unveil
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch.utils.ply import load_surfel_ply
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    s = cli_unveil.main(["--model_path", model_dir, "--semantic_class",
+                         "vehicle", "--all", "--inpainter", "diffuse",
+                         "--reopt_iterations", str(UNVEIL_REOPT),
+                         "--device", "cuda"] + UNVEIL_FLAGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = path_launches(cuda_lib)
+    ply = os.path.join(s["workspace"], "checkpoint", "point_cloud.ply")
+    n_ply = load_surfel_ply(ply)["xyz"].shape[0] if os.path.exists(ply) \
+        else 0
+    renders = len(os.listdir(os.path.join(s["workspace"], "final_renders")))
+    finite = bool(np.isfinite(s["losses"]).all())
+    ok = (s["round"] == 1 and s["removed"] > 0 and s["trained"] > 0
+          and s["moved"] > 0 and sum(s["mask_pixels"].values()) > 0 and s["losses"] and finite
+          and n_ply == s["alive"] and renders > 0
+          and all(launches[k] > 0 for k in ("expand", "blend_fwd",
+                                            "blend_bwd")))
+    emit("unveil_cli_synthetic", wall_s=wall, flags=UNVEIL_FLAGS,
+         reopt_iterations=UNVEIL_REOPT, removed=s["removed"],
+         trainable=s["trainable"], trained=s["trained"], moved=s["moved"],
+         clusters=s["clusters"], solid=s["solid"],
+         mask_pixels=s["mask_pixels"],
+         inpainted_frames=s["inpainted_frames"], losses=s["losses"],
+         final_loss=s["losses"][-1] if s["losses"] else None,
+         alive=s["alive"], ply_surfels=n_ply, final_renders=renders,
+         launches=launches)
+    if not ok:
+        raise AssertionError("the unveil CLI removed nothing, trained or "
+                             "moved no surfel, made empty masks, a "
+                             "non-finite loss or no checkpoint, or did not "
+                             "launch K1/K2/K3")
+    return launches
+
+
+def street_cameras(cam, n=4, step=2.0):
+    """``n`` copies of ``cam`` stepped ``step`` scene units along the
+    street (+z), the first ``cam`` itself."""
+    import dataclasses
+    cams = []
+    for k in range(n):
+        w2c = cam.w2c.clone()
+        w2c[2, 3] -= step * k
+        cams.append(dataclasses.replace(cam, w2c=w2c))
+    return cams
+
+
+def render_full_width(torch, state, cam, cap):
+    """The render CLI's view (``cli.render.render_view``: render, the sky
+    from seed 0, world normals, semantics) on the street at 1920×1280,
+    3 warm-up and 12 timed frames and a profile; then a TSDF fusion of 4
+    street cameras at ``mesh_res`` 512 through the render CLI's calls,
+    ``fuse_views`` (its renders and integration; timed, and profiled for
+    the kernels' split), ``volume_mesh`` (``surface_nets``) and
+    ``keep_large_clusters`` timed apart."""
+    import numpy as np
+    from streetunveiler_torch import renderer
+    from streetunveiler_torch.cli.render import render_view
+    from streetunveiler_torch.mesh import (estimate_bounds, fuse_views,
+                                           keep_large_clusters, volume_mesh)
+    from streetunveiler_torch.models.sky import init_sky
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    sky = init_sky(torch.Generator().manual_seed(0), device="cuda")
+    bg = torch.zeros(3, device="cuda")
+
+    def frame():
+        return render_view(cam, state, bg, sky, cap, True, "cuda")
+    cuda_lib.reset_launch_counts()
+    img, depth, nrm, sem = frame()
+    torch.cuda.synchronize()
+    launches = path_launches(cuda_lib)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (img, depth, nrm, sem))
+    hw = (cam.height, cam.width)
+    shapes = tuple(img.shape) == hw + (3,) and tuple(sem.shape) == hw + (6,)
+    for _ in range(3):
+        frame()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = host_ms(torch, frame, 12)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit("render_full_width", frame_ms_median=statistics.median(times),
+         frame_ms_all=times, rays_per_s=hw[0] * hw[1]
+         / (statistics.median(times) / 1e3),
+         launches_per_frame=launches, finite=finite, shapes_ok=shapes,
+         peak_mem_gib=peak, sky_alpha_mean=float(
+             (1.0 - renderer.render(cam, state, bg, duplicate_capacity=cap,
+                                    device="cuda").rend_alpha).mean()),
+         note="frame = cli.render.render_view: render + sky + world normals "
+              "+ render_semantic (nq 9), host clock between "
+              "synchronisations")
+    emit("render_full_width_profile", **profile_frames(torch, frame, 3))
+    if not (finite and shapes and launches["expand"] >= 2
+            and launches["blend_fwd"] >= 2):
+        raise AssertionError("the render CLI's full-width view is not "
+                             "finite, has the wrong shape, or did not "
+                             "launch K1/K3 for both blends")
+
+    # ---- TSDF fusion of 4 street views at mesh_res 512, through the
+    # render CLI's calls: fuse_views, volume_mesh, keep_large_clusters
+    cams = street_cameras(cam)
+    tcap = renderer.measure_duplicate_capacity(cams, state, device="cuda")
+    lo, hi = estimate_bounds(state)
+    voxel = float((hi - lo).max() / MESH_RES)
+
+    def fuse():
+        return fuse_views(cams, state, bg=bg, voxel_size=voxel,
+                          duplicate_capacity=tcap, device="cuda")
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vol = fuse()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tsdf_launches = path_launches(cuda_lib)
+    voxels = vol.tsdf.numel()
+    vol_dims = tuple(vol.tsdf.shape)
+    observed = int((vol.weight > 0).sum())
+    verts, faces, colors = volume_mesh(vol)
+    t2 = time.perf_counter()
+    pv, pf, _ = keep_large_clusters(verts, faces, colors, 0.02)
+    t3 = time.perf_counter()
+    del vol
+    prof = profile_frames(torch, fuse, 1)
+    ok = (faces.shape[0] > 0 and pf.shape[0] > 0 and observed > 0
+          and bool(np.isfinite(verts).all()) and tsdf_launches["expand"] >= 4
+          and tsdf_launches["blend_fwd"] >= 4)
+    emit("tsdf_full_width", views=len(cams), mesh_res=MESH_RES,
+         voxel_size=voxel, dims=list(vol_dims),
+         voxels=voxels, observed_voxels=observed, duplicate_capacity=tcap,
+         fuse_views_ms=(t1 - t0) * 1e3, surface_nets_ms=(t2 - t1) * 1e3,
+         keep_large_clusters_ms=(t3 - t2) * 1e3, vertices=verts.shape[0],
+         faces=faces.shape[0], post_vertices=pv.shape[0],
+         post_faces=pf.shape[0], launches=tsdf_launches,
+         note="fuse_views_ms: mesh.fuse_views whole (the 4 renders and "
+              "their integration on the card); surface_nets and "
+              "keep_large_clusters on the host; host clock")
+    emit("tsdf_full_width_profile", **prof)
+    if not ok:
+        raise AssertionError("the full-width TSDF fusion gave an empty or "
+                             "non-finite mesh, or did not launch K1/K3")
+    return dict(render=launches, tsdf=tsdf_launches)
+
+
+def reoptimize_full_width(torch, state, cam, cap):
+    """The delta re-optimization on the street at 1920×1280: its vehicle
+    class (5) clustered (the radius from the points' spacing), every solid
+    cluster removed, the neighbourhood radii scaled from the reference's
+    normalized units by the street's extent (what ``cli.unveil
+    --trainable_dist --editable_dist`` set); removal masks and the
+    background-only renders on 4 cameras stepped along the street, the
+    ground truth the perturbed copy's render (``ground_truth``), the holes
+    filled by the diffuse inpainter on the card; then ``reoptimize_step``
+    over the 4 targets: one step with the launch counts read around it,
+    3 warm-up and 12 timed steps, a profile, peak memory; the loss finite
+    and every delta outside the train mask exactly 0."""
+    import dataclasses
+
+    import numpy as np
+    from streetunveiler_torch import renderer
+    from streetunveiler_torch.config import ReOptimizationParams
+    from streetunveiler_torch.models.deltas import zero_deltas
+    from streetunveiler_torch.models.gaussians import prune_mask
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch.pipeline import masks as pmasks
+    from streetunveiler_torch.pipeline.inpaint import DiffuseFillInpainter
+    from streetunveiler_torch.pipeline.reoptimize import reoptimize_step
+    from streetunveiler_torch.pipeline.select import (
+        cluster_semantic_instance, removal_mask_for_instances)
+    from streetunveiler_torch.train.optim import adam_init
+    from streetunveiler_torch.utils.semantics import VEHICLE_BIT
+    t0 = time.perf_counter()
+    cl = cluster_semantic_instance(state, VEHICLE_BIT, threshold=None)
+    removal = removal_mask_for_instances(cl, [], all_solid=True)
+    t1 = time.perf_counter()
+    extent = float(state.spatial_scale)
+    masks = pmasks.include_neighbor_pcd(
+        state, removal, editable_dist=pmasks.EDITABLE_DIST * extent,
+        trainable_dist=pmasks.TRAINABLE_DIST * extent)
+    t2 = time.perf_counter()
+    cams = street_cameras(cam)
+    rcap = max(cap, renderer.measure_duplicate_capacity(cams, state,
+                                                        device="cuda"))
+    inpainter = DiffuseFillInpainter(device="cuda")
+    targets, mask_px, inpaint_ms = [], [], []
+    for c in cams:
+        bg, gt, _ = ground_truth(torch, state, c, rcap)
+        cond = pmasks.removal_mask_for_frame(c, state, masks.removed, bg,
+                                             duplicate_capacity=rcap,
+                                             device="cuda")
+        m = cond["mask"].cpu().numpy()
+        torch.cuda.synchronize()
+        ti = time.perf_counter()
+        inp = inpainter.inpaint(cond["rgb_without"].cpu().numpy(), m)
+        inpaint_ms.append((time.perf_counter() - ti) * 1e3)
+        mt = torch.as_tensor(m, device="cuda")[..., None]
+        targets.append(torch.where(mt, torch.as_tensor(inp, device="cuda"),
+                                   gt))
+        mask_px.append(int(m.sum()))
+    removed = torch.as_tensor(masks.removed, device="cuda")
+    train_mask = torch.as_tensor(masks.trainable, device="cuda") & ~removed
+    base = prune_mask(state, removed)
+    deltas = zero_deltas(base.params)
+    opt_state = adam_init(deltas)
+    opt = ReOptimizationParams()
+    it = [0]
+
+    def step():
+        nonlocal deltas, opt_state
+        i = it[0]
+        it[0] += 1
+        deltas, opt_state, loss = reoptimize_step(
+            base, deltas, opt_state, train_mask, cams[i % 4],
+            targets[i % 4], bg, i + 1, opt, duplicate_capacity=rcap)
+        return loss
+    cuda_lib.reset_launch_counts()
+    loss0 = float(step())
+    torch.cuda.synchronize()
+    launches = path_launches(cuda_lib)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    times = host_ms(torch, lambda: losses.append(step()), 12)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [loss0] + [float(x) for x in losses]
+    prof = profile_frames(torch, step, 3)
+    outside = ~train_mask
+    zero_outside = all(bool((getattr(deltas, f.name)[outside] == 0).all())
+                       for f in dataclasses.fields(deltas))
+    moved = int((deltas.xyz[train_mask] != 0).any(dim=1).sum())
+    finite = bool(np.isfinite(losses).all())
+    ok = (finite and zero_outside and moved > 0 and sum(mask_px) > 0
+          and all(launches[k] >= 1 for k in ("expand", "blend_fwd",
+                                             "blend_bwd")))
+    emit("reoptimize_full_width", clusters=len(cl.cluster_sizes),
+         cluster_sizes=[int(x) for x in cl.cluster_sizes[:8]],
+         removed=int(masks.removed.sum()),
+         editable=int(masks.editable.sum()),
+         trainable=int(masks.trainable.sum()),
+         train_mask=int(train_mask.sum()), radius_scale=extent,
+         mask_pixels=mask_px, inpaint_ms=inpaint_ms,
+         cluster_s=t1 - t0, neighbours_s=t2 - t1, duplicate_capacity=rcap,
+         launches_per_step=launches, step_ms_median=statistics.median(times),
+         step_ms_all=times, losses=losses, loss_finite=finite,
+         deltas_zero_outside_train_mask=zero_outside,
+         surfels_moved=moved, peak_mem_gib=peak,
+         note="step = reoptimize_step: apply_deltas, render (K3, K1), "
+              "L1 + distortion + normal, backward (K2, record scatter, "
+              "preprocess), Adam on the deltas; host clock between "
+              "synchronisations")
+    emit("reoptimize_full_width_profile", **prof)
+    if not ok:
+        raise AssertionError("the full-width re-optimization gave a "
+                             "non-finite loss, moved a delta outside the "
+                             "train mask or none inside, made empty masks, "
+                             "or did not launch K1/K2/K3")
+    return launches
+
+
+def render_unveil_phases(torch, state, cam, cap):
+    """Phase group 17: the training CLI's late run kept in a model dir for
+    the render CLI, the unveil CLI and the render CLI again (which must
+    pick up round 1), then the render CLI's view, the TSDF fusion and the
+    re-optimization step at full width. Returns the launches of each
+    path."""
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    out = {}
+    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as model_dir:
+        late = train_scene_synthetic(torch, late=True, model_dir=model_dir)
+        out["render_cli_synthetic"] = render_cli_synthetic(
+            torch, model_dir, "render_cli_synthetic",
+            train_test_psnr=late["test_psnr"])
+        out["unveil_cli_synthetic"] = unveil_cli_synthetic(torch, model_dir)
+        out["render_cli_synthetic_unveiled"] = render_cli_synthetic(
+            torch, model_dir, "render_cli_synthetic_unveiled",
+            unveiled_round=1)
+    fw = render_full_width(torch, state, cam, cap)
+    out["render_full_width"] = fw["render"]
+    out["tsdf_full_width"] = fw["tsdf"]
+    out["reoptimize_full_width_step"] = reoptimize_full_width(torch, state,
+                                                              cam, cap)
+    return out
+
+
+def partial_run(torch, only, state, cam, kind):
+    """``--only`` groups alone, after the build and the street scene:
+    ``c1`` (the 16-step deterministically trained state and its C.1
+    split) and ``paths`` (phase group 17). A quicker run for working on
+    those phases; the full run is the one without arguments."""
+    from streetunveiler_torch import renderer
+    from streetunveiler_torch.config import OptimizationParams
+    from streetunveiler_torch.models.sky import init_sky
+    from streetunveiler_torch.ops.rasterizer import kernel
+    unknown = set(only) - {"c1", "paths"}
+    if unknown:
+        raise SystemExit(f"--only: unknown groups {sorted(unknown)}")
+    cap = renderer.measure_duplicate_capacity([cam], state, device="cuda")
+    if "paths" in only:
+        emit("paths_launches", **render_unveil_phases(
+            torch, state_copy(state), cam, cap))
+    if "c1" in only:
+        bg, gt, gt_sem = ground_truth(torch, state, cam, cap)
+        trained = deterministic_trained_state(torch, state, cam, cap, bg, gt,
+                                              gt_sem, C1_STATE)
+        sky = init_sky(torch.Generator().manual_seed(0), device="cuda")
+        c1_split(torch, kernel, trained, cam, gt, bg, gt_sem, sky,
+                 OptimizationParams(), cap, f"c1_split_late_trained_{C1_STATE}")
+    print(json.dumps({"ok": True, "partial": sorted(only), "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    only = set(argv[1].split(",")) if argv[:1] == ["--only"] else set()
+    if argv and not only:
+        raise SystemExit("usage: chip_smoke.py [--only c1,paths]")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3588,6 +4410,8 @@ def main():
     torch.cuda.synchronize()
     emit("scene", surfels=N_SURFELS, width=W, height=H, focal=FOCAL,
          sh_degree=state.sh_degree, setup_s=time.perf_counter() - t0)
+    if only:
+        return partial_run(torch, only, state, cam, kind)
 
     # ---- 5a. the main path, once, with the launch counts read around it
     cuda_lib.reset_launch_counts()
@@ -3751,6 +4575,9 @@ def main():
     # and with it the inputs of every *_late_full_width check, would
     # differ from run to run
     late_state = state_copy(state)
+    # the render and unveil paths (phase group 17) run on the street as
+    # built, too
+    unveil_state = state_copy(state)
     # and trained ones that repeat from run to run: the training phases'
     # untimed steps under the deterministic mode, on other copies (the
     # phases' own schedule, and fewer steps)
@@ -3762,7 +4589,10 @@ def main():
     del trained
     bench_fwd_bwd(torch, state, cam)
     train_scene_synthetic(torch)
-    train_scene_synthetic(torch, late=True)
+    # ---- 17. the render and unveil paths (the late training CLI's run
+    # among them)
+    paths = render_unveil_phases(torch, unveil_state, cam, cap)
+    del unveil_state
 
     # ---- 9. the measurement tools
     tools = tool_phases(torch, k2[6]["args"], late["args"], k2[6],
@@ -3827,9 +4657,14 @@ def main():
                              "design or from its input")
 
     # ---- 8. kernels; launches are those of the training main path, and
-    # of the late path for the gated variants
+    # of the late path for the gated variants; launches_by_path those of
+    # phase group 17's paths, each read around its own run (the render
+    # CLI's semantics blend is K1 at nq 9)
     k1g, k2g = late["k1"], late["k2"]
     csrc = "streetunveiler_torch/ops/rasterizer/csrc/"
+
+    def by_path(key):
+        return {path: counts[key] for path, counts in paths.items()}
     # K3: device times (CUDA-graph replays) of both designs at the street's
     # capacity, the event time of back-to-back host calls beside them
     k3s = k3r["capacities"]["street"]
@@ -3837,7 +4672,8 @@ def main():
         dict(name="K3 tile expansion", route="cuda",
              source=csrc + "expand_sm90.cuh",
              replaces="streetunveiler_tpu/ops/rasterizer/tiles.py:160",
-             launches=train_launches["expand"], max_abs_err=0.0,
+             launches=train_launches["expand"],
+             launches_by_path=by_path("expand"), max_abs_err=0.0,
              ms=k3s["device_ms"],
              ms_first_design=k3s["device_ms_first_design"],
              host_path_ms=k3s["host_path_ms"],
@@ -3849,7 +4685,8 @@ def main():
         dict(name="K1 blend forward", route="cuda",
              source=csrc + "blend_fwd_sm90.cuh",
              replaces="streetunveiler_tpu/ops/rasterizer/kernel.py:217",
-             launches=train_launches["blend_fwd"], max_abs_err=k1_err,
+             launches=train_launches["blend_fwd"],
+             launches_by_path=by_path("blend_fwd"), max_abs_err=k1_err,
              ms=k1_ms, ms_first_design=first["k1", "photometric"],
              plain_ms=k1_plain_ms,
              bound_ms=max(k1_bound_bytes, k1_bound_ops),
@@ -3859,6 +4696,7 @@ def main():
              source=csrc + "blend_bwd_sm90.cuh",
              replaces="streetunveiler_tpu/ops/rasterizer/kernel.py:406",
              launches=train_launches["blend_bwd"],
+             launches_by_path=by_path("blend_bwd"),
              max_abs_err=max(k2[6]["max_abs_err"], k2[12]["max_abs_err"]),
              ms=k2[6]["ms"], ms_first_design=first["k2", "photometric"],
              plain_ms=k2[6]["plain_ms"],
@@ -3869,6 +4707,7 @@ def main():
              source=csrc + "blend_fwd_sm90.cuh",
              replaces="streetunveiler_tpu/ops/rasterizer/kernel.py:332",
              launches=late["launches"]["blend_fwd_gated"],
+             launches_by_path=by_path("blend_fwd_gated"),
              max_abs_err=k1g["max_abs_err"], ms=k1g["ms"],
              ms_first_design=first["k1", "late"], plain_ms=k1g["plain_ms"],
              bound_ms=k1g["bound_ms"], bound_by=k1g["bound_by"],
@@ -3879,6 +4718,7 @@ def main():
              source=csrc + "blend_bwd_sm90.cuh",
              replaces="streetunveiler_tpu/ops/rasterizer/kernel.py:518",
              launches=late["launches"]["blend_bwd_gated"],
+             launches_by_path=by_path("blend_bwd_gated"),
              max_abs_err=k2g["max_abs_err"], ms=k2g["ms"],
              ms_first_design=first["k2", "late"], plain_ms=k2g["plain_ms"],
              bound_ms=k2g["bound_ms"], bound_by=k2g["bound_by"],

@@ -9,6 +9,12 @@ library only — never ``jax`` and nothing of the JAX package.
 Layer map, from the entry points down:
 
     cli/train.py           the stage-1 training CLI (synthetic street scene)
+    cli/render.py          the render CLI: views, depth, normals, semantics,
+                           PSNR, the TSDF mesh (mesh.py, ops/tsdf.py)
+    cli/unveil.py          the unveil CLI: pipeline/select.py (instances),
+                           masks.py (removal masks), inpaint.py,
+                           reoptimize.py (the masked delta steps,
+                           models/deltas.py)
     train/loop.py          train_scene: camera order, densify/prune schedule,
                            capacity auto-bump, held-out evaluation
     train/step.py          train_step: render → losses → backward → Adam →
@@ -21,9 +27,9 @@ Layer map, from the entry points down:
                               blend backward = CUDA kernel K2
     ops/rasterizer/csrc/   the hand-written CUDA C++ kernels (built at first use
                            into ``streetunveiler_torch/_build/``)
-    models/, scene/, utils/, config.py, convert.py
+    models/, scene/, utils/, evaluation/, config.py, convert.py
                            state and densification, cameras, synthetic scene,
-                           PLY, cfg_args.json, weight carry-over
+                           PLY, cfg_args.json, metrics, weight carry-over
 
 Entry points take ``device="cuda"`` by default and raise when no CUDA
 device is present; they run on the CPU only when asked (``device="cpu"``),

@@ -14,10 +14,12 @@ raises where it appears (the reference's ``train.py:310,325``). Persists
 ``cfg_args.json`` and ``cameras.json`` into the model dir, saves PLYs at
 ``--save_every`` and a resumable ``checkpoint/iteration_N/splatting.npz``
 (the sky included) at the end; ``--start_iteration N`` resumes from one.
-Option groups of ``config.py`` are overridable as ``--field value``. Not
-ported yet, and refused: the file-based readers (``--scene`` other than
-synthetic), multi-device meshes (``--tile_devices``, ``--data_devices``,
-``--multihost``) and ``--profile``.
+``--profile`` first traces three steps of the first camera with
+``torch.profiler`` into ``logs/profile/trace.json`` (on copies; training
+then starts from the unchanged state). Option groups of ``config.py`` are
+overridable as ``--field value``. Not ported yet, and refused: the
+file-based readers (``--scene`` other than synthetic) and multi-device
+meshes (``--tile_devices``, ``--data_devices``, ``--multihost``).
 """
 
 from __future__ import annotations
@@ -58,7 +60,9 @@ def main(argv=None):
     ap.add_argument("--tile_devices", type=int, default=1)
     ap.add_argument("--data_devices", type=int, default=1)
     ap.add_argument("--multihost", action="store_true")
-    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--profile", action="store_true",
+                    help="trace 3 steps with torch.profiler into "
+                         "logs/profile/trace.json before training")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--detect_anomaly", action="store_true",
                     help="raise on NaN in the backward "
@@ -70,8 +74,6 @@ def main(argv=None):
 
     if args.tile_devices > 1 or args.data_devices > 1 or args.multihost:
         _refuse("multi-device training", "the multi-device slice, item 16")
-    if args.profile:
-        _refuse("--profile", "the render/eval slice, item 12")
 
     import torch
 
@@ -144,6 +146,9 @@ def main(argv=None):
         print(line, flush=True)
 
     logger = TrainLogger(os.path.join(args.model_path, "logs"))
+    if args.profile:
+        profile_steps(scene, state, opt, bg, args.duplicate_capacity or None,
+                      os.path.join(args.model_path, "logs"), dev)
     anomaly = (torch.autograd.set_detect_anomaly(True)
                if args.detect_anomaly else contextlib.nullcontext())
     try:
@@ -166,6 +171,36 @@ def main(argv=None):
                     sky_params=sky_params)
     print(f"saved {ckpt_dir}")
     return state, reports
+
+
+def profile_steps(scene, state, opt, bg, duplicate_capacity, log_dir, dev,
+                  steps: int = 3):
+    """One warm-up step, then ``steps`` traced ones (``profile_trace``), of
+    the first camera, on copies of ``state`` and fresh Adam moments:
+    ``train_step`` updates its parameters in place."""
+    import dataclasses
+
+    import torch
+
+    from ..train.step import init_optimizer, train_step
+    from ..utils.logging import profile_trace
+    p = state.params
+    s = dataclasses.replace(state, params=dataclasses.replace(p, **{
+        f.name: getattr(p, f.name).clone() for f in dataclasses.fields(p)}))
+    o = init_optimizer(s)
+    cam = scene.train_cameras[0]
+    img = torch.as_tensor(np.asarray(scene.train_images[0], np.float32),
+                          device=dev)
+
+    def step(s, o, it):
+        s, o, *_ = train_step(s, o, cam, img, bg, it, opt,
+                              duplicate_capacity=duplicate_capacity,
+                              device=dev)
+        return s, o
+    s, o = step(s, o, 1)
+    with profile_trace(log_dir):
+        for i in range(steps):
+            s, o = step(s, o, 2 + i)
 
 
 if __name__ == "__main__":

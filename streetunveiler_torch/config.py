@@ -105,6 +105,24 @@ class OptimizationParams:
     lambda_shrink: float = 0.001
 
 
+@dataclasses.dataclass(frozen=True)
+class ReOptimizationParams(OptimizationParams):
+    """The unveil stage's delta re-optimization (stage C): a short
+    schedule over the masked deltas."""
+    iterations: int = 1000
+    position_lr_max_steps: int = 1000
+    scaling_lr: float = 5e-3
+    semantic_loss_ratio: float = 0.02
+    densification_interval: int = 200
+    opacity_reset_interval: int = 400
+    densify_from_iter: int = 200
+    densify_until_iter: int = 1_500
+    enable_geometry_loss: bool = False
+    geometric_loss_ratio: float = 0.5
+    enable_depth_loss: bool = False
+    depth_loss_ratio: float = 0.025
+
+
 CFG_NAME = "cfg_args.json"
 
 
@@ -128,14 +146,13 @@ def load_config(model_path: str):
     with open(os.path.join(model_path, CFG_NAME)) as f:
         payload = json.load(f)
     kinds = {"model": ModelParams, "pipeline": PipelineParams,
-             "optimization": OptimizationParams}
+             "optimization": OptimizationParams,
+             "reoptimization": ReOptimizationParams}
     out = {}
     for name, values in payload.items():
         cls = kinds.get(name)
         if cls is None:
-            # plain-dict group (e.g. "scene"; the unveil stage's
-            # "reoptimization" until that stage is ported)
-            out[name] = values
+            out[name] = values          # plain-dict group (e.g. "scene")
             continue
         fields = {f.name for f in dataclasses.fields(cls)}
         out[name] = cls(**{k: v for k, v in values.items() if k in fields})

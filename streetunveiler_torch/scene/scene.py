@@ -1,8 +1,8 @@
 """Scene container (counterpart of ``streetunveiler_tpu/scene/scene.py``):
 the camera lists with their images and semantic maps, the initial surfel
 state, and the model-dir artifact layout
-(``point_cloud/iteration_N/point_cloud.ply``, ``cameras.json``). The
-point↔frame projection queries come with the unveil slice.
+(``point_cloud/iteration_N/point_cloud.ply``, ``cameras.json``), and the
+point↔frame projection queries of the unveil pipeline.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from ..models.gaussians import SurfelState, create_from_pcd
@@ -52,6 +53,7 @@ class Scene:
             self.load_split(scene_info.train_cameras)
         self.test_cameras, self.test_images, self.test_semantics = \
             self.load_split(scene_info.test_cameras)
+        self._scaled: dict = {}
 
     def load_split(self, cam_infos, scale: float = 1.0):
         """(cameras, images, semantics) of ``cam_infos`` at the scene's
@@ -74,6 +76,16 @@ class Scene:
             images.append(img)
             semantics.append(sem)
         return cams, images, semantics
+
+    def at_scale(self, scale: float):
+        """(cameras, images, semantics) of the train split downscaled by
+        ``scale`` (the reference's ``getTrainCameras(scale)``), cached."""
+        if scale == 1.0:
+            return self.train_cameras, self.train_images, self.train_semantics
+        if scale not in self._scaled:
+            self._scaled[scale] = self.load_split(self.info.train_cameras,
+                                                  scale)
+        return self._scaled[scale]
 
     # ----------------------------------------------------------- state
     def create_state(self, capacity: int = 0, sh_degree: int = 3,
@@ -126,6 +138,56 @@ class Scene:
         path = os.path.join(self.ply_dir(iteration), "point_cloud.ply")
         return state_from_ply(path, spatial_scale=self.cameras_extent,
                               capacity=capacity or None, device=self.device)
+
+    # ------------------------------------------- projection queries
+    def _view(self, xyz, frame_idx: int):
+        cam = self.train_cameras[frame_idx]
+        xyz = torch.as_tensor(xyz, dtype=torch.float32, device=cam.device)
+        # a 3-wide contraction as products and sums: f32 whatever the TF32
+        # flags say
+        v = (xyz[:, None, :] * cam.w2c[:3, :3]).sum(dim=-1) + cam.w2c[:3, 3]
+        return cam, v
+
+    def pcd_in_frame_mask(self, xyz, frame_idx: int, margin: float = 0.0):
+        """[N] bool: the points in train frame ``frame_idx``'s frustum
+        (depth > 0.01, projection inside the image widened by
+        ``margin``; the reference's ``getPcdInTrainFrame``)."""
+        cam, v = self._view(xyz, frame_idx)
+        z = v[:, 2]
+        zs = torch.clamp(z, min=1e-8)
+        x = v[:, 0] / zs * cam.K[0, 0] + cam.K[0, 2]
+        y = v[:, 1] / zs * cam.K[1, 1] + cam.K[1, 2]
+        return ((z > 0.01) & (x >= -margin) & (x < cam.width + margin)
+                & (y >= -margin) & (y < cam.height + margin))
+
+    def pcd_pixel_coords(self, xyz, frame_idx: int):
+        """(pixel coordinates [N, 2], depth [N]) of the points in train
+        frame ``frame_idx`` (the reference's
+        ``getPcdPixelCoordsInTrainFrameWithDepth``)."""
+        cam, v = self._view(xyz, frame_idx)
+        z = torch.clamp(v[:, 2], min=1e-8)
+        x = v[:, 0] / z * cam.K[0, 0] + cam.K[0, 2]
+        y = v[:, 1] / z * cam.K[1, 1] + cam.K[1, 2]
+        return torch.stack([x, y], dim=-1), v[:, 2]
+
+    def semantic_mask_of_splatting(self, xyz, semantic_remain_bit: int):
+        """[N] bool numpy: the points that project, in some train frame,
+        onto a pixel whose GT class is in the bit set (the reference's
+        ``getSemanticMaskOfSplatting``)."""
+        final = np.zeros(len(xyz), bool)
+        for fid, sem in enumerate(self.train_semantics):
+            if sem is None:
+                continue
+            cam = self.train_cameras[fid]
+            pix, _ = self.pcd_pixel_coords(xyz, fid)
+            inm = self.pcd_in_frame_mask(xyz, fid).cpu().numpy()
+            pix = pix.cpu().numpy()
+            px = np.clip(pix[:, 0].astype(np.int64), 0, cam.width - 1)
+            py = np.clip(pix[:, 1].astype(np.int64), 0, cam.height - 1)
+            hit = ((1 << np.asarray(sem)[py, px].astype(np.int64))
+                   & semantic_remain_bit) > 0
+            final |= inm & hit
+        return final
 
 
 def _resize(img, w, h):

@@ -6,13 +6,16 @@ layout — ``iteration``, the ``SurfelState`` leaves under ``state.``
 trained, its parameters under ``sky`` (``sky.hash_tables``,
 ``sky.mlp_w[0]``, …, ``sky.mlp_b[0]``, …) and its Adam state under
 ``skyopt`` (``skyopt.step``, ``skyopt.mu.hash_tables``, …) — so a
-checkpoint written by either package loads in the other.
+checkpoint written by either package loads in the other. Also the model
+dir's discovery helpers: the newest ``point_cloud/iteration_N``, the
+newest unveil round and its unveiled checkpoint.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import re
 
 import numpy as np
 import torch
@@ -107,3 +110,39 @@ def load_sky_for_iteration(model_path: str, iteration: int,
     if not os.path.exists(os.path.join(ckpt, "splatting.npz")):
         return None
     return _sky(_read(ckpt), resolve_device(device))[0]
+
+
+def search_max_iteration(folder: str) -> int | None:
+    """Largest N among ``iteration_N`` children of ``folder`` (the
+    reference's ``searchForMaxIteration``), None when there is none."""
+    if not os.path.isdir(folder):
+        return None
+    iters = [int(m.group(1)) for name in os.listdir(folder)
+             if (m := re.fullmatch(r"iteration_(\d+)", name))]
+    return max(iters) if iters else None
+
+
+def _inpaint_rounds(model_path: str) -> list:
+    if not os.path.isdir(model_path):
+        return []
+    return [int(m.group(1)) for name in os.listdir(model_path)
+            if (m := re.fullmatch(r"instance_workspace_(\d+)", name))]
+
+
+def search_max_inpaint_round(model_path: str) -> int:
+    """Largest N among ``instance_workspace_N`` dirs, 0 if none (the
+    reference's ``searchForMaxInpaintRound``)."""
+    return max(_inpaint_rounds(model_path), default=0)
+
+
+def latest_unveiled_checkpoint(model_path: str) -> str | None:
+    """The newest ``instance_workspace_N/checkpoint/point_cloud.ply`` that
+    exists, or None. Unveil round r starts from round r−1's unveiled state,
+    and the render CLI renders the newest one; a workspace without a
+    checkpoint (``--select_only`` leftovers) is skipped."""
+    for r in sorted(_inpaint_rounds(model_path), reverse=True):
+        ply = os.path.join(model_path, f"instance_workspace_{r}",
+                           "checkpoint", "point_cloud.ply")
+        if os.path.exists(ply):
+            return ply
+    return None

@@ -135,14 +135,17 @@ def train_scene(scene, state: SurfelState, opt: OptimizationParams,
                 duplicate_capacity: Optional[int] = None,
                 use_semantics: bool = False,
                 seed: int = 0, callback=None, logger=None,
-                eval_every: int = 0,
+                panel_every: int = 0, eval_every: int = 0,
                 eval_max_views: int = 8, opt_state=None, sky_opt_state=None,
                 device="cuda"):
     """Run the stage-1 loop on ``device`` (default the card; it raises
     without one unless ``device="cpu"``). Returns (state, sky_params,
     reports); ``sky_params`` (a ``SkyParams``) is trained jointly and
     updated in place. Pass ``opt_state``/``sky_opt_state`` from a loaded
-    checkpoint to resume with its Adam moments. Turns TF32 off for matmuls
+    checkpoint to resume with its Adam moments. With a ``logger``, every
+    ``panel_every`` iterations (0 = never) at a log point, the first
+    camera's render goes to it as the panel ``panels/render``. Turns TF32
+    off for matmuls
     and cuDNN convolutions (SSIM's blur, the sky's MLP), so the step
     computes in full float32.
     """
@@ -289,6 +292,12 @@ def train_scene(scene, state: SurfelState, opt: OptimizationParams,
                     scalars["test/psnr"] = rep.test_psnr
                     scalars["test/l1"] = rep.test_l1
                 logger.scalars(iteration, scalars)
+                if panel_every and iteration % panel_every == 0:
+                    with torch.no_grad():
+                        res = render(cams[0], state, bg,
+                                     duplicate_capacity=dup_cap, device=dev)
+                    logger.image(iteration, "panels/render",
+                                 torch.clamp(res.render, 0.0, 1.0))
             t_window = time.perf_counter()
             window_iters = 0
 

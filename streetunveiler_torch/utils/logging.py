@@ -1,7 +1,8 @@
-"""Training log (counterpart of ``TrainLogger`` in ``streetunveiler_tpu/
-utils/logging.py``): scalars as JSON lines in ``train_log.jsonl``. The JAX
-package's TensorBoard mirror and profiler hook are not ported; a trace of
-the port comes from ``torch.profiler``."""
+"""Training log (counterpart of ``streetunveiler_tpu/utils/logging.py``):
+scalars as JSON lines in ``train_log.jsonl``, rendered panels as PNG files
+under the log directory (the JAX package mirrors both to TensorBoard), a
+rays/s meter, and ``profile_trace``, a ``torch.profiler`` trace of a few
+steps written as a Chrome trace."""
 
 from __future__ import annotations
 
@@ -9,10 +10,13 @@ import json
 import os
 import time
 
+import numpy as np
+
 
 class TrainLogger:
     def __init__(self, log_dir: str):
         os.makedirs(log_dir, exist_ok=True)
+        self.log_dir = log_dir
         self.jsonl = open(os.path.join(log_dir, "train_log.jsonl"), "a")
         self._t0 = time.time()
 
@@ -22,5 +26,68 @@ class TrainLogger:
         self.jsonl.write(json.dumps(rec) + "\n")
         self.jsonl.flush()
 
+    def image(self, step: int, tag: str, img) -> str:
+        """An [H, W, 3] panel in [0, 1] (numpy or a tensor) as
+        ``<log_dir>/<tag>/<step:06d>.png``; returns its path."""
+        from PIL import Image
+        if hasattr(img, "detach"):
+            img = img.detach().cpu().numpy()
+        arr = (np.clip(np.asarray(img), 0.0, 1.0) * 255).astype(np.uint8)
+        path = os.path.join(self.log_dir, tag, f"{step:06d}.png")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(arr).save(path)
+        return path
+
+    def rays_per_s(self, step: int, pixels: int, iters: int,
+                   seconds: float) -> float:
+        v = pixels * iters / max(seconds, 1e-9)
+        self.scalars(step, {"perf/rays_per_s": v})
+        return v
+
     def close(self) -> None:
         self.jsonl.close()
+
+
+class profile_trace:
+    """A ``torch.profiler`` trace of the block, CPU and (on a card) CUDA
+    activity, written as a Chrome trace to
+    ``<log_dir>/profile/trace.json`` (open it in Perfetto or
+    ``chrome://tracing``)::
+
+        with profile_trace(os.path.join(model_path, "logs")):
+            for _ in range(3):
+                step(...)
+
+    Prints the path it wrote, or why there is no trace when the profiler
+    cannot start.
+    """
+
+    def __init__(self, log_dir: str):
+        self.dir = os.path.join(log_dir, "profile")
+        self.path = os.path.join(self.dir, "trace.json")
+        self.prof = None
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        try:
+            os.makedirs(self.dir, exist_ok=True)
+            self.prof = profile(activities=acts)
+            self.prof.__enter__()
+        except Exception as e:      # a backend without profiler support
+            self.prof = None
+            print(f"profiler trace unavailable ({e})")
+        return self
+
+    def __exit__(self, *exc):
+        if self.prof is not None:
+            import torch
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            self.prof.__exit__(*exc)
+            self.prof.export_chrome_trace(self.path)
+            print(f"wrote profiler trace to {self.path}")
+        return False

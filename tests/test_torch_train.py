@@ -412,7 +412,8 @@ def test_cli_train_on_cpu(tmp_path):
     """``python -m streetunveiler_torch.cli.train --device cpu`` at a tiny
     size: cfg_args.json readable by the JAX package, cameras.json, the
     PLY and the checkpoint; unported options are refused (the sky is
-    ported: ``test_cli_train_sky_semantics_late_phase``)."""
+    ported: ``test_cli_train_sky_semantics_late_phase``; ``--profile``:
+    ``tests/test_torch_render_cli.py``)."""
     from streetunveiler_torch.cli import train as cli_train
     out = str(tmp_path / "model")
     state, reports = cli_train.main([
@@ -433,7 +434,7 @@ def test_cli_train_on_cpu(tmp_path):
         os.path.join(out, "checkpoint", "iteration_6"), device="cpu")
     assert it == 6 and sky is None
     np.testing.assert_array_equal(np_(st.params.xyz), np_(state.params.xyz))
-    for flag in (["--tile_devices", "2"], ["--profile"]):
+    for flag in (["--tile_devices", "2"], ["--multihost"]):
         with pytest.raises(SystemExit, match="not ported"):
             cli_train.main(["--model_path", out, "--device", "cpu"] + flag)
     with pytest.raises(NotImplementedError, match="reader"):
