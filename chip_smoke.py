@@ -108,6 +108,17 @@ drives the two paths of the port on the 300k-surfel street scene at
   timed apart (``tsdf_full_width``), and the delta re-optimization step
   on the street with its vehicles removed (``reoptimize_full_width``),
   each path's K1/K2/K3 launches read around its own run.
+* the data layer (phase group 18): the street scene written as a
+  Waymo-layout segment (three front cameras over 50 frames, renders at
+  1920x1280 as JPEGs, semantic masks, 150,000 LiDAR rays a frame), read
+  back through ``read_waymo_info`` stage by stage on the host clock with
+  the card's busy time of the colorization and the voxel downsample
+  (``data_segment``, ``data_read``), both held bit for bit against their
+  CPU runs and against a second run on the card
+  (``data_device_vs_cpu``), then the training CLI on it (``cli.train
+  --scene waymo --semantics``, 30 iterations at 1920x1280:
+  ``data_train_cli``, its K1/K2/K3 launches in the kernels line's
+  ``launches_by_path``).
 
 The late full-width checks (gated K1/K2, T1 and T2 of both designs) run
 on two late streams: the street state as built (``*_late_full_width``)
@@ -118,8 +129,9 @@ both the same in every run. On the 16-step trained state
 ``scaling`` error against its tolerance to a duplicate and a pixel, with
 a float64 reference of that pair (ROADMAP C.1).
 
-``python3 chip_smoke.py --only c1,paths`` runs the build, the street
-scene and those groups alone (a quicker run while working on them).
+``python3 chip_smoke.py --only c1,paths,data`` runs the build, the street
+scene and those groups alone, or any of them (a quicker run while working
+on them).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last two lines are the kernels table and
@@ -4291,22 +4303,322 @@ def render_unveil_phases(torch, state, cam, cap):
     return out
 
 
-def partial_run(torch, only, state, cam, kind):
+# ---- 18. the data layer: a Waymo-layout segment written from the street
+# scene, read back through the port's reader (colorization and the voxel
+# downsample on the card), then the training CLI on it
+DATA_FRAMES = 50          # a Waymo segment has about 198
+DATA_RAYS = 150_000       # LiDAR rays a frame, each to a surfel centre
+DATA_MAX_POINTS = 5_000_000   # driving.assemble_driving_scene's cap
+DATA_VOXEL = 0.15             # the readers' voxel size
+DATA_CHECK_FRAMES = 10    # frames of the colorization's CPU check
+DATA_ITERS = 30
+DATA_EVAL_VIEWS = 8
+
+
+def host_stage(torch, fn):
+    """(result, host ms) of ``fn`` between synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def same_bits(a, b):
+    """Two tuples of numpy arrays hold the same dtypes, shapes and bytes."""
+    return all(x.dtype == y.dtype and x.shape == y.shape
+               and x.tobytes() == y.tobytes() for x, y in zip(a, b))
+
+
+def timed_calls(module, names, totals):
+    """Replace each of ``names`` in ``module`` by a wrapper that adds its
+    host milliseconds to ``totals[name]``; returns the restoring call."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                totals[name] = (totals.get(name, 0.0)
+                                + (time.perf_counter() - t0) * 1e3)
+        return timed
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    return lambda: [setattr(module, n, fn) for n, fn in saved.items()]
+
+
+def data_read(torch, root, colmap, smi):
+    """``read_waymo_info`` on the segment, stage by stage (the reader's own
+    functions, in its order) on the host clock: the files (split into
+    ``scenario.pt``, the image decodes, the mask reads and the rest: the
+    poses and the LiDAR files), the cap, the
+    colorization and the voxel downsample (card), then ``Scene`` and
+    ``create_state`` (the host KD-tree); the card's busy time of the two
+    card stages from a second, profiled run of each; the point counts
+    after each stage; then the whole ``read_waymo_info`` call, which must
+    give the stages' cloud bit for bit. Then the card against the CPU:
+    the colorization of the capped cloud in the first
+    ``DATA_CHECK_FRAMES`` frames and the voxel downsample of the whole
+    coloured cloud, bit for bit, and the profiled runs against the timed
+    ones. Returns the scene and its initial state."""
+    from streetunveiler_torch.scene import readers
+    from streetunveiler_torch.scene.readers import driving, projection, waymo
+    from streetunveiler_torch.scene.scene import Scene
+    from streetunveiler_torch.utils.pcd import voxel_down_sample
+    files_split = {}
+    restore = timed_calls(waymo, ("_load_scenario", "read_rgb",
+                                  "load_semantic_npz"), files_split)
+    try:
+        (cams, lidar, frame_dict), files_ms = host_stage(
+            torch, lambda: waymo.read_waymo_inputs(root, colmap))
+    finally:
+        restore()
+    files_split = dict(scenario=files_split["_load_scenario"],
+                       images=files_split["read_rgb"],
+                       masks=files_split["load_semantic_npz"])
+    files_split["poses_and_lidar"] = files_ms - sum(files_split.values())
+    pts, cap_ms = host_stage(
+        torch, lambda: driving.cap_points(lidar, DATA_MAX_POINTS))
+    frames = driving.camera_frames(cams)
+    colorize = lambda: driving.labelled_cloud(pts, frames, device="cuda")
+    voxel = lambda: voxel_down_sample(pc, DATA_VOXEL, device="cuda")
+    pc, colorize_ms = host_stage(torch, colorize)
+    vox, voxel_ms = host_stage(torch, voxel)
+    runs = []
+    colorize_prof = profile_frames(torch, lambda: runs.append(colorize()), 1)
+    voxel_prof = profile_frames(torch, lambda: runs.append(voxel()), 1)
+    card_runs_equal = same_bits(runs[0], pc) and same_bits(runs[1], vox)
+
+    info, whole_ms = host_stage(
+        torch, lambda: readers.read_waymo_info(root, colmap, device="cuda"))
+    whole_equal = same_bits(info.point_cloud, vox)
+    scene, scene_ms = host_stage(
+        torch, lambda: Scene(info, resolution=1, device="cuda"))
+    state, state_ms = host_stage(torch, scene.create_state)
+    emit("data_read", card=smi, stages_ms=dict(
+        files=files_ms, cap=cap_ms, colorize=colorize_ms, voxel=voxel_ms,
+        scene=scene_ms, create_state=state_ms),
+        files_split_ms=files_split,
+        card_busy_ms=dict(
+            colorize=colorize_prof["device_busy_ms_per_frame"],
+            voxel=voxel_prof["device_busy_ms_per_frame"]),
+        card_ops=dict(colorize=colorize_prof["device_ops_per_frame"],
+                      voxel=voxel_prof["device_ops_per_frame"]),
+        read_waymo_info_ms=whole_ms, read_waymo_info_equal=whole_equal,
+        points=dict(lidar_valid=len(lidar), capped=len(pts),
+                    labelled=len(pc.points), voxels=len(vox.points),
+                    surfels=int(state.num_alive)),
+        capacity=state.capacity,
+        camera_frames=len(frames), frame_dict=frame_dict,
+        voxel_size=DATA_VOXEL, max_points=DATA_MAX_POINTS)
+
+    sub = frames[:DATA_CHECK_FRAMES]
+    col = [projection.colorize_points_from_frames(pts, sub, device=d)
+           for d in ("cuda", "cuda", "cpu")]
+    vox_cpu = voxel_down_sample(pc, DATA_VOXEL, device="cpu")
+    checks = dict(colorize_card_vs_cpu=same_bits(col[0], col[2]),
+                  colorize_card_twice=same_bits(col[0], col[1]),
+                  voxel_card_vs_cpu=same_bits(vox, vox_cpu),
+                  card_runs_equal=card_runs_equal,
+                  read_waymo_info_equal=whole_equal)
+    emit("data_device_vs_cpu", card=smi, **checks,
+         check_frames=len(sub), colorized_points=len(pts),
+         seen_in_check_frames=int(col[0][2].sum()),
+         voxel_input_points=len(pc.points), voxels=len(vox.points))
+    if not all(checks.values()):
+        raise AssertionError(f"the data layer's card and CPU runs differ: "
+                             f"{checks}")
+    data_zits_batch(torch, frames, smi)
+    return scene, state
+
+
+def data_zits_batch(torch, frames, smi):
+    """The ZITS++ adapter's math on the card against its CPU run, on the
+    segment's frame with the most vehicle pixels, the vehicles as the
+    hole: ``prepare_batch`` at test size 512 with the gradients (the
+    positional encoding's dilations on the 256 grid, the Sobel maps) bit
+    for bit, twice; ``edge_nms`` and ``sharpen`` on a soft edge map made
+    from its gradients, NMS bit for bit and ``sharpen`` within 1e-6 (the
+    CPU tests' tolerance against the JAX package)."""
+    from streetunveiler_torch.pipeline import zits
+    from streetunveiler_torch.utils.semantics import CONCERNED_IND
+    veh = [int((f["semantic"] == CONCERNED_IND["vehicle"]).sum())
+           for f in frames]
+    pick = max(range(len(frames)), key=veh.__getitem__)
+    image = frames[pick]["image"]
+    mask = frames[pick]["semantic"] == CONCERNED_IND["vehicle"]
+    prep = lambda d: zits.prepare_batch(image, mask, test_size=512,
+                                        use_gradient=True, device=d)
+    cpu = prep("cpu")
+    card, card_ms = host_stage(torch, lambda: prep("cuda"))
+    card2 = prep("cuda")
+    keys = [k for k, v in cpu.items() if hasattr(v, "dtype")]
+    host = lambda b, k: b[k].cpu().numpy()
+    batch_equal = all(same_bits((host(card, k), host(card2, k)),
+                                (host(cpu, k), host(cpu, k)))
+                      for k in keys)
+    edge = torch.clamp(torch.hypot(cpu["gradientx"], cpu["gradienty"])
+                       / 1020.0, 0.0, 1.0)[0, 0]
+    nms = [zits.edge_nms(edge.to(d)).cpu().numpy() for d in ("cuda", "cpu")]
+    sharp = [zits.sharpen(edge.to(d) * 8.0 - 4.0).cpu().numpy()
+             for d in ("cuda", "cpu")]
+    sharpen_err = float(abs(sharp[0] - sharp[1]).max())
+    checks = dict(prepare_batch_equal=batch_equal,
+                  edge_nms_equal=same_bits([nms[0]], [nms[1]]),
+                  sharpen_within_1e6=sharpen_err <= 1e-6)
+    emit("data_zits_batch", card=smi, **checks, frame=pick,
+         hole_pixels=int(mask.sum()), image_hw=list(image.shape[:2]),
+         tensors=keys, max_abs_pos=int(cpu["abs_pos"].max()),
+         nms_pixels=int(nms[1].sum()),
+         nms_pixels_differing=int((nms[0] != nms[1]).sum()),
+         sharpen_max_abs_err=sharpen_err, card_ms=card_ms)
+    if not all(checks.values()):
+        raise AssertionError(f"the ZITS++ adapter's card and CPU runs "
+                             f"differ: {checks}")
+
+
+def data_train_cli(torch, root, colmap, scene, state0, smi):
+    """``cli.train --scene waymo --semantics`` on the segment at 1920x1280
+    for ``DATA_ITERS`` iterations, in process: the median step (the
+    loop's per-iteration windows, each ended by a synchronization, so a
+    window holds its step's device work), the card's busy and idle shares
+    over 3
+    more steps of the trained state (one on each rig camera), the surfel
+    count, the K1/K2/K3 launches, and the
+    PSNR of ``DATA_EVAL_VIEWS`` training views spread over the rig before
+    and after. Fails unless every loss is finite and that PSNR rises.
+    Returns the launches."""
+    import numpy as np
+    from streetunveiler_torch.cli import train as cli_train
+    from streetunveiler_torch.config import OptimizationParams
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch.train.loop import evaluate_views
+    from streetunveiler_torch.train.step import (bin_step, init_optimizer,
+                                                 train_step)
+    pick = np.linspace(0, len(scene.train_cameras) - 1,
+                       DATA_EVAL_VIEWS).astype(int)
+    views = ([scene.train_cameras[i] for i in pick],
+             [scene.train_images[i] for i in pick])
+    bg = torch.zeros(3, device="cuda")
+    psnr0, _ = evaluate_views(state0, *views, bg, max_views=DATA_EVAL_VIEWS)
+    cuda_lib.reset_launch_counts()
+    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as model_dir:
+        t0 = time.perf_counter()
+        state, reports = cli_train.main([
+            "--scene", "waymo", "--source_path", root, "--colmap_path",
+            colmap, "--model_path", model_dir, "--semantics",
+            "--iterations", str(DATA_ITERS), "--eval_every", "0",
+            "--log_every", "1", "--resolution", "1", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = path_launches(cuda_lib)
+    psnr1, _ = evaluate_views(state, *views, bg, max_views=DATA_EVAL_VIEWS)
+    # the first window holds the capacity probe, the last the PLY's save
+    step_ms = [1e3 / r.iters_per_s for r in reports[1:-1]]
+    losses = [r.loss for r in reports]
+
+    # one more step on each rig camera at the middle frame, in turn
+    opt = OptimizationParams()
+    ost = init_optimizer(state)
+    rig = [len(scene.train_cameras) // 3 * k + DATA_FRAMES // 2
+           for k in range(3)]
+    inputs = [(scene.train_cameras[i],
+               torch.as_tensor(scene.train_images[i], device="cuda"),
+               torch.as_tensor(scene.train_semantics[i], device="cuda"))
+              for i in rig]
+    cap = reports[-1].dup_capacity
+    it = [DATA_ITERS]
+
+    def step():
+        nonlocal state, ost
+        cam, gt, gt_sem = inputs[it[0] % 3]
+        it[0] += 1
+        b = bin_step(state, cam, duplicate_capacity=cap, device="cuda")
+        state, ost, _, _, _ = train_step(
+            state, ost, cam, gt, bg, it[0], opt, gt_semantic=gt_sem,
+            duplicate_capacity=cap, binning=b, device="cuda")
+    for _ in range(3):
+        step()
+    prof = profile_frames(torch, step, 3)
+    ok = (bool(np.isfinite(losses).all()) and psnr1 > psnr0
+          and all(launches[k] > 0 for k in ("expand", "blend_fwd",
+                                            "blend_bwd")))
+    emit("data_train_cli", card=smi, iterations=DATA_ITERS,
+         width=W, height=H, train_views=len(scene.train_cameras),
+         step_ms_median=statistics.median(step_ms), step_ms_all=step_ms,
+         step_median_over_busy=(statistics.median(step_ms)
+                                / prof["device_busy_ms_per_frame"]),
+         card_busy_ms_per_step=prof["device_busy_ms_per_frame"],
+         card_idle_share=prof["device_idle_share"],
+         wall_ms_per_profiled_step=prof["wall_ms_per_frame"],
+         device_ops_per_step=prof["device_ops_per_frame"],
+         profiled_views=rig, top_kernels=prof["top_kernels"][:6],
+         init_surfels=int(state0.num_alive), surfels=reports[-1].n_alive,
+         capacity=state.capacity, duplicate_capacity=cap,
+         train_views_psnr_before=psnr0, train_views_psnr_after=psnr1,
+         eval_views=pick.tolist(), loss_first=losses[0],
+         loss_last=losses[-1], losses_finite=bool(np.isfinite(losses).all()),
+         cli_wall_s=wall, launches=launches)
+    if not ok:
+        raise AssertionError("the training CLI on the Waymo segment gave a "
+                             "non-finite loss, did not raise the training "
+                             "views' PSNR, or did not launch K1/K2/K3")
+    return launches
+
+
+def data_phases(torch, state, smi):
+    """Phase group 18: the segment written from ``state`` (the street as
+    built) into a temporary directory by ``tools/waymo_segment.py``, read
+    back by stages and checked against the CPU, then trained on by the
+    CLI. Returns the CLI's launches."""
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch.tools import waymo_segment
+    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as tmp:
+        root = os.path.join(tmp, "segment")
+        colmap = os.path.join(tmp, "segment_colmap")
+        reduced = {
+            "frames": f"{DATA_FRAMES} of a segment's about 198",
+            "cameras": "the reader's three front cameras",
+            "images": "renders of the 300,000-surfel street scene at "
+                      f"{W}x{H}, not photographs",
+            "semantic_masks": "the semantic render's argmax, one "
+                              "Cityscapes id a class, not a segmenter's "
+                              "output",
+            "lidar": f"{DATA_RAYS} rays a frame from the sensor to surfel "
+                     f"centres, {waymo_segment.INVALID} of them with range "
+                     "0",
+            "colmap": "no COLMAP model, so no alignment step"}
+        emit("data_segment", card=smi, reduced=reduced,
+             **waymo_segment.write_segment(
+                 state, root, colmap, DATA_FRAMES, DATA_RAYS, W, H, FOCAL,
+                 device="cuda"))
+        scene, state0 = data_read(torch, root, colmap, smi)
+        return data_train_cli(torch, root, colmap, scene, state0, smi)
+
+
+def partial_run(torch, only, state, cam, kind, smi):
     """``--only`` groups alone, after the build and the street scene:
     ``c1`` (the 16-step deterministically trained state and its C.1
-    split) and ``paths`` (phase group 17). A quicker run for working on
-    those phases; the full run is the one without arguments."""
+    split), ``paths`` (phase group 17) and ``data`` (phase group 18). A
+    quicker run for working on those phases; the full run is the one
+    without arguments."""
     from streetunveiler_torch import renderer
     from streetunveiler_torch.config import OptimizationParams
     from streetunveiler_torch.models.sky import init_sky
     from streetunveiler_torch.ops.rasterizer import kernel
-    unknown = set(only) - {"c1", "paths"}
+    unknown = set(only) - {"c1", "paths", "data"}
     if unknown:
         raise SystemExit(f"--only: unknown groups {sorted(unknown)}")
     cap = renderer.measure_duplicate_capacity([cam], state, device="cuda")
     if "paths" in only:
         emit("paths_launches", **render_unveil_phases(
             torch, state_copy(state), cam, cap))
+    if "data" in only:
+        emit("data_launches", data_train_cli=data_phases(
+            torch, state_copy(state), smi))
     if "c1" in only:
         bg, gt, gt_sem = ground_truth(torch, state, cam, cap)
         trained = deterministic_trained_state(torch, state, cam, cap, bg, gt,
@@ -4324,7 +4636,7 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     only = set(argv[1].split(",")) if argv[:1] == ["--only"] else set()
     if argv and not only:
-        raise SystemExit("usage: chip_smoke.py [--only c1,paths]")
+        raise SystemExit("usage: chip_smoke.py [--only c1,paths,data]")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4411,7 +4723,7 @@ def main(argv=None):
     emit("scene", surfels=N_SURFELS, width=W, height=H, focal=FOCAL,
          sh_degree=state.sh_degree, setup_s=time.perf_counter() - t0)
     if only:
-        return partial_run(torch, only, state, cam, kind)
+        return partial_run(torch, only, state, cam, kind, smi)
 
     # ---- 5a. the main path, once, with the launch counts read around it
     cuda_lib.reset_launch_counts()
@@ -4575,9 +4887,10 @@ def main(argv=None):
     # and with it the inputs of every *_late_full_width check, would
     # differ from run to run
     late_state = state_copy(state)
-    # the render and unveil paths (phase group 17) run on the street as
-    # built, too
+    # the render and unveil paths (phase group 17) and the data layer's
+    # segment (phase group 18) run on the street as built, too
     unveil_state = state_copy(state)
+    data_state = state_copy(state)
     # and trained ones that repeat from run to run: the training phases'
     # untimed steps under the deterministic mode, on other copies (the
     # phases' own schedule, and fewer steps)
@@ -4593,6 +4906,10 @@ def main(argv=None):
     # among them)
     paths = render_unveil_phases(torch, unveil_state, cam, cap)
     del unveil_state
+    # ---- 18. the data layer: the Waymo-layout segment, its reader and
+    # the training CLI on it
+    paths["data_train_cli"] = data_phases(torch, data_state, smi)
+    del data_state
 
     # ---- 9. the measurement tools
     tools = tool_phases(torch, k2[6]["args"], late["args"], k2[6],
@@ -4658,8 +4975,8 @@ def main(argv=None):
 
     # ---- 8. kernels; launches are those of the training main path, and
     # of the late path for the gated variants; launches_by_path those of
-    # phase group 17's paths, each read around its own run (the render
-    # CLI's semantics blend is K1 at nq 9)
+    # phase group 17's paths and phase group 18's training CLI, each read
+    # around its own run (the render CLI's semantics blend is K1 at nq 9)
     k1g, k2g = late["k1"], late["k2"]
     csrc = "streetunveiler_torch/ops/rasterizer/csrc/"
 

@@ -1,11 +1,21 @@
 """Stage-1 training CLI (counterpart of ``streetunveiler_tpu/cli/
-train.py``), on the synthetic street scene:
+train.py``):
 
     python -m streetunveiler_torch.cli.train --model_path /tmp/model \
         --iterations 2000 [--semantics] [--sky] [--device cuda]
+    python -m streetunveiler_torch.cli.train --scene waymo \
+        --source_path /data/segment --colmap_path /data/segment_colmap \
+        --model_path /tmp/waymo --semantics --sky
 
-Runs on the card by default (``--device cpu`` for the CPU). With
-``--semantics`` the step adds the semantic cross entropy and, past
+``--scene`` picks the dataset reader (synthetic, colmap, blender, waymo,
+kitti, pandaset, nuscenes), with its selectors ``--colmap_path``,
+``--date``/``--drive`` (KITTI), ``--sequence`` (Pandaset),
+``--scene_name``/``--version`` (nuScenes) and ``--start_frame``/
+``--end_frame``; they persist in ``cfg_args.json`` so that render and
+unveil reload the same scene. The driving readers colour and
+voxel-downsample their LiDAR cloud on the training device. Runs on the
+card by default (``--device cpu`` for the CPU). With ``--semantics`` the
+step adds the semantic cross entropy and, past
 ``semantic_dist_from_iter``, the gated per-class distortion; ``--sky``
 trains the sky model jointly (initialised from ``--seed``);
 ``--detect_anomaly`` runs the training under
@@ -17,9 +27,9 @@ raises where it appears (the reference's ``train.py:310,325``). Persists
 ``--profile`` first traces three steps of the first camera with
 ``torch.profiler`` into ``logs/profile/trace.json`` (on copies; training
 then starts from the unchanged state). Option groups of ``config.py`` are
-overridable as ``--field value``. Not ported yet, and refused: the
-file-based readers (``--scene`` other than synthetic) and multi-device
-meshes (``--tile_devices``, ``--data_devices``, ``--multihost``).
+overridable as ``--field value``. Not ported yet, and refused:
+multi-device meshes (``--tile_devices``, ``--data_devices``,
+``--multihost``).
 """
 
 from __future__ import annotations
@@ -31,6 +41,8 @@ import sys
 
 import numpy as np
 
+from .common import SCENE_KINDS
+
 
 def _refuse(flag: str, item: str):
     raise SystemExit(f"{flag} is not ported to the PyTorch build yet: it "
@@ -39,9 +51,19 @@ def _refuse(flag: str, item: str):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", default="synthetic")
+    ap.add_argument("--scene", default="synthetic", choices=SCENE_KINDS)
     ap.add_argument("--source_path", default="")
+    ap.add_argument("--colmap_path", default="")
     ap.add_argument("--model_path", required=True)
+    # per-dataset selectors (persisted into cfg_args.json)
+    ap.add_argument("--date", default="", help="kitti recording date")
+    ap.add_argument("--drive", default="", help="kitti drive number")
+    ap.add_argument("--sequence", default="", help="pandaset sequence")
+    ap.add_argument("--scene_name", default="", help="nuscenes scene")
+    ap.add_argument("--version", default="v1.0-mini",
+                    help="nuscenes version")
+    ap.add_argument("--start_frame", type=int, default=None)
+    ap.add_argument("--end_frame", type=int, default=None)
     ap.add_argument("--eval", action="store_true",
                     help="hold out every 8th view for evaluation")
     ap.add_argument("--iterations", type=int, default=None)
@@ -92,9 +114,13 @@ def main(argv=None):
     strict_fp32()
     opt, rest = apply_overrides(OptimizationParams(), rest)
     model = ModelParams(source_path=args.source_path,
+                        colmap_path=args.colmap_path,
                         model_path=args.model_path,
                         resolution=args.resolution, capacity=args.capacity,
-                        scene=args.scene, eval=args.eval)
+                        scene=args.scene, date=args.date, drive=args.drive,
+                        sequence=args.sequence, scene_name=args.scene_name,
+                        version=args.version, start_frame=args.start_frame,
+                        end_frame=args.end_frame, eval=args.eval)
     model, rest = apply_overrides(model, rest)
     pipe, rest = apply_overrides(PipelineParams(
         duplicate_capacity=args.duplicate_capacity), rest)

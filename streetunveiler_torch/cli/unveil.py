@@ -11,12 +11,14 @@ and re-optimizes the masked deltas → final renders into
 ``instance_workspace_<round>/``. A second run starts from the newest
 unveiled round (round chaining).
 
-``--inpainter`` picks the 2D model: ``diffuse`` (the built-in fill) or
+``--inpainter`` picks the 2D model: ``diffuse`` (the built-in fill),
 ``dir:<path>`` (the out-of-band file exchange, where a host running the
-real models answers requests; ``pipeline/inpaint.py``). The in-process
-ZITS++ and LeftRefill adapters (``zits:``, ``leftrefill:``) are not ported
-yet and are refused. Runs on the card by default (``--device cpu`` for
-the CPU).
+real models answers requests; ``pipeline/inpaint.py``), or
+``zits:<repo>[:<ckpt>]`` and ``leftrefill:<repo>[:<ckpt_dir>]`` to run
+those adapters in process when the external checkouts and weights are on
+this host (``pipeline/zits.py``, ``pipeline/leftrefill.py``; they raise
+without them). Runs on the card by default (``--device cpu`` for the
+CPU).
 """
 
 from __future__ import annotations
@@ -36,14 +38,21 @@ def make_inpainter(spec: str, timeout: float = 600.0, device="cuda"):
         return DirectoryInpainter(spec[4:], timeout=timeout,
                                   fallback=DiffuseFillInpainter(
                                       device=device))
-    if spec.startswith(("zits:", "leftrefill:")):
-        raise SystemExit(
-            f"the {spec.split(':')[0]} inpainter is not ported to the "
-            "PyTorch build yet: its adapter comes with the rest of the "
-            "unveil slice, item 13's remainder (ROADMAP.md); use 'diffuse' "
-            "or 'dir:<path>'")
-    raise ValueError(f"unknown inpainter spec {spec!r} (expected 'diffuse' "
-                     "or 'dir:<path>')")
+    if spec.startswith("zits:"):
+        # in-process ZITS++ on this host: zits:<repo>[:<ckpt_root>]
+        from ..pipeline.zits import ZitsInpainter
+        repo, _, ckpt = spec[5:].partition(":")
+        return ZitsInpainter(repo, ckpt or os.path.join(repo, "ckpts"),
+                             device=device)
+    if spec.startswith("leftrefill:"):
+        # in-process LeftRefill: leftrefill:<repo>[:<ckpt_dir>]
+        from ..pipeline.leftrefill import LeftRefillInpainter
+        repo, _, ckpt = spec[11:].partition(":")
+        return LeftRefillInpainter(
+            repo, ckpt or "check_points/ref_guided_inpainting", device=device)
+    raise ValueError(f"unknown inpainter spec {spec!r} (expected 'diffuse', "
+                     "'dir:<path>', 'zits:<repo>[:<ckpt>]' or "
+                     "'leftrefill:<repo>[:<ckpt_dir>]')")
 
 
 def main(argv=None):
@@ -76,7 +85,9 @@ def main(argv=None):
                     help="every k-th frame is a key frame")
     ap.add_argument("--reopt_iterations", type=int, default=1000)
     ap.add_argument("--inpainter", default="diffuse",
-                    help="'diffuse' or 'dir:<exchange-dir>'")
+                    help="'diffuse', 'dir:<exchange-dir>', "
+                         "'zits:<repo>[:<ckpt>]' or "
+                         "'leftrefill:<repo>[:<ckpt_dir>]'")
     ap.add_argument("--inpaint_timeout", type=float, default=600.0)
     ap.add_argument("--select_only", action="store_true",
                     help="stop after stage A so instance ids can be chosen "

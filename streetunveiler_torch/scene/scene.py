@@ -2,7 +2,8 @@
 the camera lists with their images and semantic maps, the initial surfel
 state, and the model-dir artifact layout
 (``point_cloud/iteration_N/point_cloud.ply``, ``cameras.json``), and the
-point↔frame projection queries of the unveil pipeline.
+point↔frame projection queries of the unveil pipeline; ``load_scene``
+builds one from a dataset reader.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from ..models.gaussians import SurfelState, create_from_pcd
 from ..utils.ply import state_from_ply, state_to_ply
 from ..utils.semantics import CONCERNED_IND
 from .cameras import make_camera
+from .readers import SCENE_READERS
 from .readers.basic import SceneInfo
 
 
@@ -188,6 +190,17 @@ class Scene:
                    & semantic_remain_bit) > 0
             final |= inm & hit
         return final
+
+
+def load_scene(kind: str, model_path: str = "", device="cuda",
+               **kwargs) -> Scene:
+    """The ``Scene`` of the ``kind`` reader (``SCENE_READERS``) called with
+    ``kwargs`` (``resolution`` goes to the scene); the driving and
+    synthetic readers, and the scene's cameras, on ``device``."""
+    resolution = kwargs.pop("resolution", -1)
+    info = SCENE_READERS[kind](device=device, **kwargs)
+    return Scene(info, model_path=model_path, resolution=resolution,
+                 device=device)
 
 
 def _resize(img, w, h):

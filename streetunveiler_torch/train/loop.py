@@ -255,6 +255,10 @@ def train_scene(scene, state: SurfelState, opt: OptimizationParams,
                 dup_cap = new_cap
 
         if iteration % log_every == 0 or iteration == iterations:
+            # the window ends when the card has finished its steps, not
+            # when the host has queued them
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
             dt = time.perf_counter() - t_window
             ovf = bool(metrics["overflow"])
             test_psnr, test_l1 = float("nan"), float("nan")

@@ -411,7 +411,8 @@ def test_checkpoint_roundtrip_with_jax(setup, tmp_path):
 def test_cli_train_on_cpu(tmp_path):
     """``python -m streetunveiler_torch.cli.train --device cpu`` at a tiny
     size: cfg_args.json readable by the JAX package, cameras.json, the
-    PLY and the checkpoint; unported options are refused (the sky is
+    PLY and the checkpoint; multi-device options and unknown scene kinds
+    are refused (the sky is
     ported: ``test_cli_train_sky_semantics_late_phase``; ``--profile``:
     ``tests/test_torch_render_cli.py``)."""
     from streetunveiler_torch.cli import train as cli_train
@@ -437,9 +438,9 @@ def test_cli_train_on_cpu(tmp_path):
     for flag in (["--tile_devices", "2"], ["--multihost"]):
         with pytest.raises(SystemExit, match="not ported"):
             cli_train.main(["--model_path", out, "--device", "cpu"] + flag)
-    with pytest.raises(NotImplementedError, match="reader"):
+    with pytest.raises(SystemExit):
         cli_train.main(["--model_path", out, "--device", "cpu", "--scene",
-                        "colmap"])
+                        "unknown"])
 
 
 def test_cli_detect_anomaly_raises_on_a_nan_loss(tmp_path, monkeypatch):

@@ -411,7 +411,8 @@ def test_unveil_cli_rounds_chain(tmp_path, monkeypatch):
     CLIs: round 1 removes vehicles, round 2 buildings from round 1's
     unveiled state, the render CLI follows the newest round, a
     checkpoint-less workspace is skipped; round 1's removal mask is the
-    JAX package's on the same state; ``zits:`` is refused."""
+    JAX package's on the same state; ``zits:`` without the external
+    checkout raises."""
     from streetunveiler_torch.cli import common as cli_common
     from streetunveiler_torch.cli import render as cli_render
     from streetunveiler_torch.cli import unveil as cli_unveil
@@ -468,7 +469,7 @@ def test_unveil_cli_rounds_chain(tmp_path, monkeypatch):
     r = cli_render.main(["--model_path", mp, "--skip_mesh", "--device",
                          "cpu"])
     assert r["unveiled"] == ply2 and np.isfinite(r["train_psnr"])
-    with pytest.raises(SystemExit, match="item 13"):
+    with pytest.raises(RuntimeError, match="ZITS-PlusPlus repo not found"):
         cli_unveil.main(base + ["--inpainter", "zits:/x:/y"])
 
 
