@@ -120,6 +120,27 @@ drives the two paths of the port on the 300k-surfel street scene at
   ``data_train_cli``, its K1/K2/K3 launches in the kernels line's
   ``launches_by_path``).
 
+* the evaluation networks (phase group 19): LPIPS-VGG and the FID
+  InceptionV3 (``streetunveiler_torch/evaluation/``) on random-init
+  weights written through the port's weight writer, one seeded pair of
+  800x600 images on the card against the same modules on the CPU, and
+  their time a pair (``eval_networks``);
+* the end-to-end run (phase group 20): ``tools/e2e_config2.py`` at
+  BASELINE config 2 (100k points, 40 cameras at 800x600, 1200 iterations
+  with densification), train → render and mesh → unveil → LPIPS and FID
+  through the port's CLIs, its held-out PSNR against the 24.0 gate, each
+  stage's time and K1/K2/K3 launches (``e2e_config2``), then one
+  training step on its trained state under ``torch.profiler``
+  (``e2e_train_step_profile``);
+* multi-device training at world size 1 (phase group 21): a one-rank
+  NCCL group and a 1×1 mesh; the sharded late step on the street against
+  ``train_step`` from the same state, replicated and surfel-sharded
+  (``multi_step_vs_train_step``, ``_zero``), the slab split at full width
+  into 2 and 4 slabs with slab-local binning and the ``shift_packT``
+  records path (``multi_slab_split_2``, ``_4``), both steps timed in
+  turns (``multi_step_time``), the dryrun (``multi_dryrun``). An exchange
+  between two ranks needs two cards and is checked on gloo on the CPU.
+
 The late full-width checks (gated K1/K2, T1 and T2 of both designs) run
 on two late streams: the street state as built (``*_late_full_width``)
 and a state trained by the training phases' untimed steps under the
@@ -129,9 +150,9 @@ both the same in every run. On the 16-step trained state
 ``scaling`` error against its tolerance to a duplicate and a pixel, with
 a float64 reference of that pair (ROADMAP C.1).
 
-``python3 chip_smoke.py --only c1,paths,data`` runs the build, the street
-scene and those groups alone, or any of them (a quicker run while working
-on them).
+``python3 chip_smoke.py --only c1,paths,data,eval,e2e,multi`` runs the
+build, the street scene and those groups alone, or any of them (a quicker
+run while working on them).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last two lines are the kernels table and
@@ -4599,20 +4620,444 @@ def data_phases(torch, state, smi):
         return data_train_cli(torch, root, colmap, scene, state0, smi)
 
 
+# ---- 19. the evaluation networks (LPIPS-VGG, the FID InceptionV3) on the
+# card against the same modules on the CPU, at config 2's 800x600
+EVAL_H, EVAL_W = 600, 800
+EVAL_REL_TOL = 1e-4     # largest |card − CPU| over the CPU's largest |value|
+EVAL_DIST_RTOL, EVAL_DIST_ATOL = 1e-4, 1e-5   # the LPIPS distance
+
+
+def eval_phases(torch, smi):
+    """Phase group 19: random-init LPIPS and Inception weights (the
+    end-to-end tool's, ``np.random.default_rng(0)``) written through the
+    weight writer; one seeded pair of 600x800 images through both networks
+    on the card and on the CPU; the errors and the card's time a pair."""
+    import numpy as np
+    from streetunveiler_torch.evaluation import inception, lpips
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch.device import strict_fp32
+    from streetunveiler_torch.tools.e2e_config2 import make_eval_weights
+    strict_fp32()
+    rng = np.random.default_rng(0)
+    a = rng.uniform(0, 1, (EVAL_H, EVAL_W, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        lp_npz, inc_npz = make_eval_weights(tmp)
+        weights_s = time.perf_counter() - t0
+        nets = {dev: (lpips.load_lpips_weights(lp_npz, dev),
+                      inception.load_inception_weights(inc_npz, dev))
+                for dev in ("cuda", "cpu")}
+
+    def nchw(img, dev):
+        return torch.as_tensor(img, device=dev).permute(2, 0, 1)[None]
+
+    def rel(got, want):
+        got, want = got.detach().cpu().double(), want.detach().double()
+        return float((got - want).abs().max()
+                     / max(float(want.abs().max()), 1e-30))
+
+    with torch.no_grad():
+        taps = {dev: nets[dev][0].features(nchw(a, dev))
+                for dev in ("cuda", "cpu")}
+        dist = {dev: float(lpips.lpips_pair(nets[dev][0], a, b))
+                for dev in ("cuda", "cpu")}
+        pool3 = {dev: inception.inception_pool3(nets[dev][1], a[None])
+                 for dev in ("cuda", "cpu")}
+    tap_rel = [rel(g, c) for g, c in zip(taps["cuda"], taps["cpu"])]
+    pool3_rel = rel(pool3["cuda"], pool3["cpu"])
+    dist_err = abs(dist["cuda"] - dist["cpu"])
+    ok = (max(tap_rel) <= EVAL_REL_TOL and pool3_rel <= EVAL_REL_TOL
+          and dist_err <= EVAL_DIST_RTOL * abs(dist["cpu"]) + EVAL_DIST_ATOL
+          and dist["cpu"] > 0
+          and bool(torch.isfinite(pool3["cuda"]).all()))
+    ta, tb = nchw(a, "cuda"), nchw(b, "cuda")
+    x299 = torch.as_tensor(a[None], device="cuda")
+    with torch.no_grad():
+        lpips_ms = cuda_ms(torch, lambda: nets["cuda"][0].distance(ta, tb),
+                           5)
+        inception_ms = cuda_ms(torch, lambda: nets["cuda"][1](x299), 5)
+    emit("eval_networks", card=smi, image=[EVAL_H, EVAL_W],
+         lpips_cuda=dist["cuda"], lpips_cpu=dist["cpu"],
+         lpips_abs_err=dist_err, lpips_tap_rel_err=tap_rel,
+         pool3_rel_err=pool3_rel,
+         pool3_shape=list(pool3["cuda"].shape),
+         lpips_pair_ms=lpips_ms, inception_image_ms=inception_ms,
+         weights_s=weights_s, within_tolerance=ok,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         tolerance=dict(rel=EVAL_REL_TOL, dist_rtol=EVAL_DIST_RTOL,
+                        dist_atol=EVAL_DIST_ATOL),
+         note="rel: the largest |card - CPU| over the CPU's largest "
+              "|value| (each LPIPS tap, pool3); the Inception input "
+              "downsamples to 299 with antialiasing; times: CUDA events "
+              "over 5 back-to-back calls (one LPIPS pair: both images' "
+              "taps and the heads; one Inception image)")
+    if not ok:
+        raise AssertionError("an evaluation network on the card disagrees "
+                             "with the CPU")
+
+
+# ---- 20. the end-to-end run at BASELINE config 2 through the port's CLIs
+E2E_PROFILE_STEPS = 3
+
+
+def e2e_phase(torch, smi):
+    """Phase group 20: ``tools/e2e_config2.py`` in full (train 1200
+    iterations with densification → render and the TSDF mesh → unveil
+    every vehicle → LPIPS and FID), then one training step on its trained
+    state under ``torch.profiler``. Returns each stage's launches."""
+    from streetunveiler_torch import renderer
+    from streetunveiler_torch.cli.common import (load_scene_info,
+                                                 scene_background)
+    from streetunveiler_torch.config import load_config
+    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch.scene.scene import Scene
+    from streetunveiler_torch.tools import e2e_config2
+    from streetunveiler_torch.train.step import init_optimizer, train_step
+    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as tmp:
+        mp = os.path.join(tmp, "model")
+        rec = e2e_config2.main(["--model_path", mp, "--device", "cuda",
+                                "--out", os.path.join(tmp, "e2e.json")])
+        emit("e2e_config2", card=smi, record=rec,
+             gate_ok=bool(rec["test_psnr"] > e2e_config2.PSNR_GATE
+                          and rec["test_psnr"] > rec["init_test_psnr"] + 1),
+             note="the end-to-end tool's record (its asserts passed): "
+                  "stage times on the host clock between synchronisations")
+        cfg = load_config(mp)
+        scene = Scene(load_scene_info(cfg["model"], device="cuda"),
+                      model_path=mp, device="cuda")
+        state = scene.load(rec["iterations"])
+        bg = scene_background(scene, device="cuda")
+        cap = renderer.measure_duplicate_capacity(scene.train_cameras,
+                                                  state, device="cuda")
+        opt = cfg["optimization"]
+        cam, img = scene.train_cameras[0], torch.as_tensor(
+            scene.train_images[0], device="cuda")
+        st = {"s": state, "o": init_optimizer(state)}
+
+        def step():
+            st["s"], st["o"], *_ = train_step(
+                st["s"], st["o"], cam, img, bg, rec["iterations"] + 1, opt,
+                duplicate_capacity=cap, device="cuda")
+        step()
+        emit("e2e_train_step_profile", card=smi,
+             surfels=int(state.num_alive), duplicate_capacity=cap,
+             **profile_frames(torch, step, E2E_PROFILE_STEPS),
+             note="train_step on the trained config-2 state, first train "
+                  "camera (800x600), after one warm step; per step")
+    return {f"e2e_{k}": v for k, v in rec["launches_by_stage"].items()}
+
+
+# ---- 21. multi-device training at world size 1 (NCCL) on the card
+MULTI_ITER = 30_001    # past semantic_dist_from_iter and
+#                        normal_consist_from_iter, before shrinking (the
+#                        sharded step has no shrink term, as the JAX one)
+MULTI_RTOL = 1e-5      # tests/test_loop_sharded.py:119-121
+# A slab renders its pixels at slab-local coordinates through the shifted
+# principal point (K[1,2] -= row0), exact in real arithmetic but rounded
+# otherwise in f32: the first slab is bit for bit the full render's rows,
+# the others differ by rounding, with pairs crossing the α = 1/255 gate
+# (Δα = 1/255) at a few pixels. The phase reports the share of pixels
+# past tests/test_shard.py:48's 1e-5, which holds at the tests' 64 rows
+# but not at 1280 (2.6-5.2% of a slab's pixels of the street on an H100);
+# it fails past SLAB_ROUNDING_TOL on more than FLIP_FRACTION of a slab, or
+# past two gate flips at any pixel: a wrong row, binning or record moves
+# O(0.1) of many pixels. The JAX package's slabs round alike: on the CPU,
+# tests/test_torch_shard.py::test_slab_rounding_is_the_designs renders the
+# street's 32 centre columns at 1280 rows in both packages
+SLAB_ATOL = 1e-5
+SLAB_ROUNDING_TOL = 1e-4
+SLAB_FLIP_MAX = 2.0 / 255.0
+MULTI_TIMING_ROUNDS = 3
+
+
+def slab_err(torch, got, want, row0, rows):
+    """A slab render against ``want``'s rows ``row0:row0 + rows``: the
+    largest colour error, the pixels past ``SLAB_ATOL`` and their share,
+    the largest error elsewhere, and the worst pixel with both sides'
+    alpha."""
+    a = want.render[row0:row0 + rows]
+    e = (got.render - a).abs().amax(dim=-1)
+    over = e > SLAB_ATOL
+    idx = int(e.argmax())
+    r, c = divmod(idx, e.shape[1])
+    da = (got.rend_alpha - want.rend_alpha[row0:row0 + rows]).abs()
+    return dict(
+        max_abs_err=float(e.max()), pixels_over_atol=int(over.sum()),
+        share_over_atol=float(over.float().mean()),
+        share_over={f"{t:g}": float((e > t).float().mean())
+                    for t in (1e-5, 2e-5, 5e-5, 1e-4, 1e-3)},
+        # the 32 centre columns: the strip that tests/test_torch_shard.py
+        # renders in both packages on the CPU
+        share_over_atol_centre32=float(
+            (e[:, W // 2 - 16:W // 2 + 16] > SLAB_ATOL).float().mean()),
+        alpha_max_abs_err=float(da.max()),
+        alpha_share_over={f"{t:g}": float((da > t).float().mean())
+                          for t in (2e-5, 1e-4, 1e-3)},
+        max_abs_err_elsewhere=float(e[~over].max()) if bool((~over).any())
+        else 0.0,
+        worst_pixel=dict(row=row0 + r, col=c, alpha=float(
+            got.rend_alpha[r, c]), alpha_want=float(
+                want.rend_alpha[row0 + r, c])))
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multi_phases(torch, state, cam, cap, smi):
+    """Phase group 21: a one-rank NCCL group and a 1×1 mesh; the sharded
+    late step (semantics, class distortion, the sky) on the street against
+    ``train_step`` from the same state, replicated and surfel-sharded; the
+    slab split at full width (2 and 4 slabs, slab-local binning and the
+    ``shift_packT`` records path) against the full render; both steps
+    timed in turns; the dryrun. Returns the sharded step's launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from streetunveiler_torch import renderer
+    from streetunveiler_torch.config import OptimizationParams
+    from streetunveiler_torch.models.sky import init_sky
+    from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel
+    from streetunveiler_torch.ops.rasterizer.api import (
+        _gather_records, bin_inputs_for_camera, bin_slab_from_inputs,
+        rasterize_stream, shift_packT)
+    from streetunveiler_torch.ops.rasterizer.preprocess import \
+        preprocess_surfels
+    from streetunveiler_torch.parallel.dryrun import dryrun_multichip
+    from streetunveiler_torch.parallel.multihost import bootstrap
+    from streetunveiler_torch.parallel.shard import (make_mesh,
+                                                     make_sharded_train_step)
+    from streetunveiler_torch.scene.cameras import Camera
+    from streetunveiler_torch.train.optim import adam_init
+    from streetunveiler_torch.train.step import init_optimizer, train_step
+
+    rank, world, _ = bootstrap("cuda", f"tcp://127.0.0.1:{_free_port()}",
+                               rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        bg, gt, gt_sem = ground_truth(torch, state, cam, cap)
+        opt = OptimizationParams()
+        sky0 = init_sky(torch.Generator().manual_seed(0), device="cuda")
+
+        def fresh():
+            s = state_copy(state)
+            sk = sky0.map(lambda t: t.clone())
+            return s, init_optimizer(s), sk, adam_init(sk)
+
+        def single(s, o, sk, so):
+            return train_step(s, o, cam, gt, bg, MULTI_ITER, opt,
+                              sky_params=sk, sky_opt_state=so,
+                              gt_semantic=gt_sem, class_dist=True,
+                              duplicate_capacity=cap, device="cuda")
+
+        steps = {zero: make_sharded_train_step(
+            mesh, opt, W, H, duplicate_capacity=cap, semantics=True,
+            class_dist=True, sky=True, shard_surfels=zero)
+            for zero in (False, True)}
+
+        def sharded(s, o, sk, so, zero=False):
+            return steps[zero](s, o, cam.w2c[None], cam.K[None], gt[None], bg,
+                               MULTI_ITER, gt_sem[None], sk, so)
+
+        ref_s, ref_o, _, _, ref_m = single(*fresh())
+        torch.cuda.synchronize()
+        keys = ("loss", "l1", "ssim", "psnr", "semantic")
+        checks = {}
+        launches = None
+        for zero in (False, True):
+            cuda_lib.reset_launch_counts()
+            s2, o2, _, _, m2 = sharded(*fresh(), zero=zero)
+            torch.cuda.synchronize()
+            if not zero:
+                launches = path_launches(cuda_lib)
+            rel = {k: abs(float(m2[k]) - float(ref_m[k]))
+                   / max(abs(float(ref_m[k])), 1e-30) for k in keys}
+            grad = {}
+            for f in dataclasses.fields(ref_o.mu):
+                want = getattr(ref_o.mu, f.name)     # 0.1·g after one step
+                got = getattr(o2.mu, f.name)
+                if want.numel() == 0:
+                    continue
+                amax = float(want.abs().max())
+                excess = float(((got - want).abs() - GRAD_RTOL * want.abs()
+                                ).max())
+                grad[f.name] = dict(max_abs_err=float(
+                    (got - want).abs().max()), atol=GRAD_ATOL_REL * amax,
+                    ok=excess <= GRAD_ATOL_REL * amax)
+            ok = (all(v <= MULTI_RTOL for v in rel.values())
+                  and all(g["ok"] for g in grad.values())
+                  and bool(m2["overflow"]) == bool(ref_m["overflow"])
+                  and int(m2["n_alive"]) == int(ref_m["n_alive"]))
+            checks["zero" if zero else "replicated"] = ok
+            emit("multi_step_vs_train_step" + ("_zero" if zero else ""),
+                 card=smi, backend=dist.get_backend(), world=world,
+                 mesh=[1, 1], iteration=MULTI_ITER, rel_err=rel,
+                 rtol=MULTI_RTOL, surfel_grads=grad,
+                 loss=float(m2["loss"]), loss_train_step=float(ref_m["loss"]),
+                 launches=launches if not zero else path_launches(cuda_lib),
+                 within_tolerance=ok,
+                 note="the sharded late step (semantics, class_dist, sky) "
+                      "against train_step from copies of one state; "
+                      "surfel_grads: the first Adam moments (0.1·g) at K2's "
+                      "per-surfel tolerance (atol GRAD_ATOL_REL·max|g|, "
+                      "rtol GRAD_RTOL)")
+        del ref_s, ref_o, s2, o2
+
+        # the slab split at full width; the same renders with K1's plain
+        # version in its place (the binning and the rest unchanged), to
+        # tell the design's rounding from K1's own
+        def plain_render(camera, capacity):
+            k1 = kernel.blend_forward
+            kernel.blend_forward = (
+                lambda recT, off, tx, ty, st, nq=kernel.NQ, n_gates=0,
+                tile_order=None: kernel.blend_forward_plain(
+                    recT, off, tx, ty, st, nq, n_gates))
+            try:
+                with torch.no_grad():
+                    return renderer.render(camera, state, bg,
+                                           duplicate_capacity=capacity,
+                                           device="cuda")
+            finally:
+                kernel.blend_forward = k1
+
+        settings = renderer._settings_for(cam, 1.0)
+        with torch.no_grad():
+            full = renderer.render(cam, state, bg, duplicate_capacity=cap,
+                                   device="cuda")
+        full_plain = plain_render(cam, cap)
+        emit("multi_full_render_k1_vs_plain", card=smi,
+             k1_vs_plain=slab_err(torch, full, full_plain, 0, H),
+             note="the full 1920x1280 render through K1 against the same "
+                  "render with K1's plain version: K1's own rounding at "
+                  "the slab split's thresholds")
+        with torch.no_grad():
+            opac = state.get_opacity()[:, 0]
+            geo = (state.params.xyz, state.get_scaling(),
+                   state.get_rotation(), opac)
+            inputs = bin_inputs_for_camera(*geo, cam.w2c, cam.K, settings)
+            sur = preprocess_surfels(*geo, renderer.surfel_colors(
+                state, cam, 3), cam.w2c, cam.K, settings)
+            packT = kernel.pack_geometry_T(sur, state.capacity)
+        slabs = {}
+        for n_tile in (2, 4):
+            slab = H // n_tile
+            per = []
+            for i in range(n_tile):
+                row0 = i * slab
+                k = cam.K.clone()
+                k[1, 2] -= float(row0)
+                cs = Camera(w2c=cam.w2c, K=k, width=W, height=slab)
+                cap_s = renderer.measure_duplicate_capacity([cs], state,
+                                                            device="cuda")
+                with torch.no_grad():
+                    rs = renderer.render(cs, state, bg,
+                                         duplicate_capacity=cap_s,
+                                         device="cuda")
+                    b = bin_slab_from_inputs(inputs, row0, W, slab, cap_s)
+                    out = rasterize_stream(
+                        _gather_records(shift_packT(packT, row0),
+                                        b.sorted_surfel), sur.radius,
+                        renderer._settings_for(cs, 1.0), b, bg=bg)
+                per.append(dict(
+                    row0=row0, capacity=cap_s, overflow=bool(rs.overflow)
+                    or bool(b.overflow),
+                    demand_shifted_k=int(rs.demand), demand_slab_bin=int(
+                        b.demand),
+                    vs_full_rows=slab_err(
+                        torch, rs, full, row0, slab),
+                    shift_packT_vs_shifted_k=slab_err(
+                        torch, renderer.finalize_render(out, cs), rs, 0,
+                        slab),
+                    plain_vs_full_rows_plain=slab_err(
+                        torch, plain_render(cs, cap_s), full_plain, row0,
+                        slab)))
+            ok = all(p[k]["share_over"][f"{SLAB_ROUNDING_TOL:g}"]
+                     <= FLIP_FRACTION and p[k]["max_abs_err"]
+                     <= SLAB_FLIP_MAX
+                     for p in per for k in ("vs_full_rows",
+                                            "shift_packT_vs_shifted_k")
+                     ) and not any(p["overflow"] for p in per)
+            within_atol = all(p[k]["pixels_over_atol"] == 0 for p in per
+                              for k in ("vs_full_rows",
+                                        "shift_packT_vs_shifted_k"))
+            slabs[n_tile] = ok
+            emit(f"multi_slab_split_{n_tile}", card=smi, slab_rows=slab,
+                 width=W, slabs=per, atol=SLAB_ATOL,
+                 within_atol=within_atol,
+                 rounding_tol=SLAB_ROUNDING_TOL,
+                 flip_fraction=FLIP_FRACTION, flip_max=SLAB_FLIP_MAX,
+                 within_tolerance=ok,
+                 note="each slab rendered with K[1,2] -= row0 against the "
+                      "full render's rows; the records path: full-camera "
+                      "records through shift_packT, binned slab-locally by "
+                      "bin_slab_from_inputs, against the shifted-K render; "
+                      "max over the 3 colour channels a pixel; within_atol: "
+                      "every pixel within atol (reported); the check: past "
+                      "rounding_tol on at most flip_fraction of a slab, "
+                      "nowhere past flip_max (two alpha-gate flips); "
+                      "share_over: the share of a slab's pixels past each "
+                      "error; the worst pixel's alpha on both sides; "
+                      "plain_vs_full_rows_plain: the same split with K1's "
+                      "plain version in both renders (reported)")
+        del full, full_plain, inputs, sur, packT
+
+        # both steps timed in turns on one state each (in place)
+        a_args, b_args = fresh(), fresh()
+        for f in (lambda: single(*a_args), lambda: sharded(*b_args)):
+            f()
+        times = {"train_step": [], "sharded_1x1": []}
+        for _ in range(MULTI_TIMING_ROUNDS):
+            for name, f in (("train_step", lambda: single(*a_args)),
+                            ("sharded_1x1", lambda: sharded(*b_args)),
+                            ("sharded_1x1", lambda: sharded(*b_args)),
+                            ("train_step", lambda: single(*a_args))):
+                times[name] += host_ms(torch, f, 1)
+        emit("multi_step_time", card=smi, iteration=MULTI_ITER,
+             ms_median={k: statistics.median(v) for k, v in times.items()},
+             ms_all=times, note="host ms between synchronisations, in the "
+             "turns train_step, sharded, sharded, train_step; each on its "
+             "own state copy, updated in place")
+        del a_args, b_args
+
+        dryrun_multichip(1, "cuda")
+        emit("multi_dryrun", ok=True, world=1,
+             note="parallel/dryrun.py: the late-phase step, W 32, H 16, "
+                  "48 surfels at capacity 64, in this one-rank group")
+    finally:
+        dist.destroy_process_group()
+    if not (all(checks.values()) and all(slabs.values())):
+        raise AssertionError("the sharded step differs from train_step or "
+                             "a slab render from the full render")
+    return launches
+
+
 def partial_run(torch, only, state, cam, kind, smi):
     """``--only`` groups alone, after the build and the street scene:
     ``c1`` (the 16-step deterministically trained state and its C.1
-    split), ``paths`` (phase group 17) and ``data`` (phase group 18). A
-    quicker run for working on those phases; the full run is the one
+    split), ``paths`` (phase group 17), ``data`` (phase group 18),
+    ``eval`` (19), ``e2e`` (20) and ``multi`` (21). A quicker run for working on those phases; the full run is the one
     without arguments."""
     from streetunveiler_torch import renderer
     from streetunveiler_torch.config import OptimizationParams
     from streetunveiler_torch.models.sky import init_sky
     from streetunveiler_torch.ops.rasterizer import kernel
-    unknown = set(only) - {"c1", "paths", "data"}
+    unknown = set(only) - {"c1", "paths", "data", "eval", "e2e", "multi"}
     if unknown:
         raise SystemExit(f"--only: unknown groups {sorted(unknown)}")
     cap = renderer.measure_duplicate_capacity([cam], state, device="cuda")
+    if "eval" in only:
+        eval_phases(torch, smi)
+    if "e2e" in only:
+        emit("e2e_launches", **e2e_phase(torch, smi))
+    if "multi" in only:
+        emit("multi_launches", multi_sharded_step=multi_phases(
+            torch, state_copy(state), cam, cap, smi))
     if "paths" in only:
         emit("paths_launches", **render_unveil_phases(
             torch, state_copy(state), cam, cap))
@@ -4636,7 +5081,8 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     only = set(argv[1].split(",")) if argv[:1] == ["--only"] else set()
     if argv and not only:
-        raise SystemExit("usage: chip_smoke.py [--only c1,paths,data]")
+        raise SystemExit("usage: chip_smoke.py "
+                         "[--only c1,paths,data,eval,e2e,multi]")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4891,6 +5337,7 @@ def main(argv=None):
     # segment (phase group 18) run on the street as built, too
     unveil_state = state_copy(state)
     data_state = state_copy(state)
+    multi_state = state_copy(state)
     # and trained ones that repeat from run to run: the training phases'
     # untimed steps under the deterministic mode, on other copies (the
     # phases' own schedule, and fewer steps)
@@ -4910,6 +5357,13 @@ def main(argv=None):
     # the training CLI on it
     paths["data_train_cli"] = data_phases(torch, data_state, smi)
     del data_state
+    # ---- 19-21. the evaluation networks, the end-to-end run at config 2
+    # and multi-device training at world size 1
+    eval_phases(torch, smi)
+    paths.update(e2e_phase(torch, smi))
+    paths["multi_sharded_step"] = multi_phases(torch, multi_state, cam, cap,
+                                               smi)
+    del multi_state
 
     # ---- 9. the measurement tools
     tools = tool_phases(torch, k2[6]["args"], late["args"], k2[6],

@@ -27,9 +27,16 @@ raises where it appears (the reference's ``train.py:310,325``). Persists
 ``--profile`` first traces three steps of the first camera with
 ``torch.profiler`` into ``logs/profile/trace.json`` (on copies; training
 then starts from the unchanged state). Option groups of ``config.py`` are
-overridable as ``--field value``. Not ported yet, and refused:
-multi-device meshes (``--tile_devices``, ``--data_devices``,
-``--multihost``).
+overridable as ``--field value``.
+
+``--tile_devices T --data_devices D`` train on a D×T mesh of ranks
+(``train_scene_sharded``, ``parallel/shard.py``), one rank per device:
+under torchrun each rank takes its rank and the world from the
+environment; on one host without torchrun the CLI starts the D·T ranks
+itself, one per local GPU with NCCL, or gloo ranks with ``--device cpu``
+(it raises when the host has fewer GPUs than the mesh needs).
+``--multihost`` requires a launcher's environment (torchrun). Rank 0
+writes the model dir.
 """
 
 from __future__ import annotations
@@ -42,11 +49,6 @@ import sys
 import numpy as np
 
 from .common import SCENE_KINDS
-
-
-def _refuse(flag: str, item: str):
-    raise SystemExit(f"{flag} is not ported to the PyTorch build yet: it "
-                     f"comes with {item} (ROADMAP.md)")
 
 
 def main(argv=None):
@@ -94,10 +96,30 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     args, rest = ap.parse_known_args(argv)
 
-    if args.tile_devices > 1 or args.data_devices > 1 or args.multihost:
-        _refuse("multi-device training", "the multi-device slice, item 16")
-
     import torch
+    import torch.distributed as dist
+
+    n_mesh = args.tile_devices * args.data_devices
+    launched = dist.is_initialized() or (
+        "RANK" in os.environ and "WORLD_SIZE" in os.environ)
+    if args.multihost and not launched:
+        raise SystemExit("--multihost needs a launcher's environment (RANK, "
+                         "WORLD_SIZE, MASTER_ADDR, MASTER_PORT): run under "
+                         "torchrun")
+    if n_mesh > 1 and not launched:
+        # one host, no launcher: start the mesh's ranks here
+        from ..parallel.multihost import launch_local
+        launch_local(main, n_mesh, args.device,
+                     args=(list(sys.argv[1:] if argv is None else argv),))
+        return None
+    rank = 0
+    if launched:
+        from ..parallel.multihost import bootstrap
+        rank, world, _ = bootstrap(args.device)
+        if world != n_mesh:
+            raise SystemExit(f"the {args.data_devices}x{args.tile_devices} "
+                             f"mesh needs {n_mesh} ranks, the launcher "
+                             f"started {world}")
 
     from ..config import (ModelParams, OptimizationParams, PipelineParams,
                           apply_overrides, save_config)
@@ -105,13 +127,16 @@ def main(argv=None):
     from ..models.sky import init_sky
     from ..scene.scene import Scene
     from ..train.checkpoint import load_checkpoint, save_checkpoint
-    from ..train.loop import train_scene
+    from ..train.loop import train_scene, train_scene_sharded
     from ..train.step import init_optimizer
     from ..utils.logging import TrainLogger
     from .common import load_scene_info, scene_background
 
     dev = resolve_device(args.device)
+    if dev.type == "cuda" and launched:
+        dev = torch.device("cuda", torch.cuda.current_device())
     strict_fp32()
+    lead = rank == 0
     opt, rest = apply_overrides(OptimizationParams(), rest)
     model = ModelParams(source_path=args.source_path,
                         colmap_path=args.colmap_path,
@@ -123,23 +148,26 @@ def main(argv=None):
                         end_frame=args.end_frame, eval=args.eval)
     model, rest = apply_overrides(model, rest)
     pipe, rest = apply_overrides(PipelineParams(
+        tile_devices=args.tile_devices,
         duplicate_capacity=args.duplicate_capacity), rest)
     if rest:
         print(f"WARNING: unrecognized arguments {rest}", file=sys.stderr)
     info = load_scene_info(model, seed=args.seed, device=dev)
     scene = Scene(info, model_path=args.model_path,
                   resolution=args.resolution, device=dev)
-    save_config(args.model_path, model=model, pipeline=pipe,
-                optimization=opt,
-                scene={"cameras_extent": float(scene.cameras_extent)})
-    scene.save_cameras_json()
+    if lead:
+        save_config(args.model_path, model=model, pipeline=pipe,
+                    optimization=opt,
+                    scene={"cameras_extent": float(scene.cameras_extent)})
+        scene.save_cameras_json()
     state = scene.create_state(capacity=args.capacity,
                                sh_degree=model.sh_degree)
-    print(f"scene: {len(scene.train_cameras)} train / "
-          f"{len(scene.test_cameras)} test cameras, "
-          f"{int(state.num_alive)} init surfels, "
-          f"capacity {state.capacity}, extent {scene.cameras_extent:.1f}, "
-          f"device {dev}")
+    if lead:
+        print(f"scene: {len(scene.train_cameras)} train / "
+              f"{len(scene.test_cameras)} test cameras, "
+              f"{int(state.num_alive)} init surfels, "
+              f"capacity {state.capacity}, extent "
+              f"{scene.cameras_extent:.1f}, device {dev}")
     bg = scene_background(scene, model.white_background, device=dev)
 
     sky_params = None
@@ -171,31 +199,40 @@ def main(argv=None):
             line += f" test_psnr={r.test_psnr:.2f}"
         print(line, flush=True)
 
-    logger = TrainLogger(os.path.join(args.model_path, "logs"))
-    if args.profile:
+    logger = TrainLogger(os.path.join(args.model_path, "logs")) \
+        if lead else None
+    if args.profile and lead:
         profile_steps(scene, state, opt, bg, args.duplicate_capacity or None,
                       os.path.join(args.model_path, "logs"), dev)
     anomaly = (torch.autograd.set_detect_anomaly(True)
                if args.detect_anomaly else contextlib.nullcontext())
+    common = dict(sky_params=sky_params, bg=bg, iterations=iterations,
+                  start_iteration=start_iteration, save_iterations=saves,
+                  log_every=args.log_every,
+                  duplicate_capacity=args.duplicate_capacity or None,
+                  use_semantics=args.semantics, seed=args.seed,
+                  callback=report if lead else None, logger=logger,
+                  opt_state=opt_state, device=dev)
     try:
         with anomaly:
-            state, sky_params, reports = train_scene(
-                scene, state, opt, sky_params=sky_params, bg=bg,
-                iterations=iterations,
-                start_iteration=start_iteration, save_iterations=saves,
-                log_every=args.log_every, eval_every=args.eval_every,
-                duplicate_capacity=args.duplicate_capacity or None,
-                use_semantics=args.semantics, seed=args.seed,
-                callback=report, logger=logger, opt_state=opt_state,
-                device=dev)
+            if launched:
+                state, sky_params, reports = train_scene_sharded(
+                    scene, state, opt, n_tile=args.tile_devices,
+                    n_data=args.data_devices, **common)
+            else:
+                state, sky_params, reports = train_scene(
+                    scene, state, opt, eval_every=args.eval_every,
+                    **common)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
-    ckpt_dir = os.path.join(args.model_path, "checkpoint",
-                            f"iteration_{iterations}")
-    save_checkpoint(ckpt_dir, state, init_optimizer(state), iterations,
-                    sky_params=sky_params)
-    print(f"saved {ckpt_dir}")
+    if lead:
+        ckpt_dir = os.path.join(args.model_path, "checkpoint",
+                                f"iteration_{iterations}")
+        save_checkpoint(ckpt_dir, state, init_optimizer(state), iterations,
+                        sky_params=sky_params)
+        print(f"saved {ckpt_dir}")
     return state, reports
 
 

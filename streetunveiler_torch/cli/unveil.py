@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import numpy as np
 import torch
@@ -174,6 +175,17 @@ def main(argv=None):
                                      torch.linalg.inv(c.w2c))
                           for c in scene.train_cameras]
 
+    stage_s = {}
+    t_stage = [time.perf_counter()]
+
+    def lap(name):
+        """Close stage ``name`` on the host clock (after the card)."""
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        stage_s[name] = now - t_stage[0]
+        t_stage[0] = now
+
     # ---- stage A: selection and per-instance previews
     class_bit = 1 << CONCERNED_IND[args.semantic_class]
     min_size = args.min_cluster_size or MIN_SOLID_CLUSTER
@@ -188,8 +200,10 @@ def main(argv=None):
           f"(top sizes {cl.cluster_sizes[:5]}), "
           f"{int(solid.sum())} surfels in solid clusters; previews in "
           f"{os.path.join(ws, 'instance_render')}")
+    lap("select")
     summary = dict(round=rnd, workspace=ws, clusters=len(cl.cluster_sizes),
-                   solid=int(solid.sum()), duplicate_capacity=dup_cap)
+                   solid=int(solid.sum()), duplicate_capacity=dup_cap,
+                   stage_s=stage_s)
     if args.select_only:
         print("stage A only (--select_only): rerun with --instances <ids> "
               "or --all")
@@ -217,6 +231,7 @@ def main(argv=None):
                                            frames=front_frames,
                                            duplicate_capacity=dup_cap,
                                            device=dev)
+    lap("masks")
     print(f"stage B: removing {int(removal.sum())} surfels, "
           f"{int(masks.trainable.sum())} trainable; conditions in {ws} "
           f"(front frames {fs}..{fe - 1})")
@@ -235,6 +250,7 @@ def main(argv=None):
                                callback=lambda f, loss, _: losses.append(
                                    loss), device=dev)
 
+    lap("inpaint_reoptimize")
     out = os.path.join(ws, "checkpoint")
     state_to_ply(os.path.join(out, "point_cloud.ply"), final)
 
@@ -258,6 +274,7 @@ def main(argv=None):
             Image.fromarray((np.asarray(scene.train_images[i]) * 255
                              ).astype(np.uint8)).save(
                 os.path.join(gtd, f"{i:05d}.png"))
+    lap("save_and_final_renders")
     print(f"stage C: unveiled state at {out}; renders in {rd}; final loss "
           f"{losses[-1] if losses else float('nan'):.5f}")
     train_mask = torch.as_tensor(masks.trainable & ~masks.removed,

@@ -2,10 +2,11 @@
 evaluation/metrics.py``).
 
 ``evaluate_dirs`` walks two image directories pairwise (sorted name order)
-and reports mean PSNR and SSIM (``train/losses.py``). LPIPS comes with the
-evaluation networks (ROADMAP item 15): a weight file is refused until
-then. ``frechet_distance``, ``activation_stats`` and ``fid_from_dirs`` are
-FID's math around a feature function the caller passes.
+and reports mean PSNR and SSIM (``train/losses.py``), plus LPIPS
+(``evaluation/lpips.py``) when a weight file is given, all on the device.
+``frechet_distance``, ``activation_stats`` and ``fid_from_dirs`` are FID's
+math around a feature function the caller passes
+(``evaluation/inception.py`` or the VGG taps of ``evaluation/lpips.py``).
 """
 
 from __future__ import annotations
@@ -34,13 +35,14 @@ def evaluate_dirs(render_dir: str, gt_dir: str,
                   lpips_weights: Optional[str] = None,
                   device="cuda") -> dict:
     """Mean PSNR and SSIM over the images of ``render_dir`` that have a
-    same-named ground truth in ``gt_dir``, computed on ``device``."""
-    if lpips_weights:
-        raise NotImplementedError(
-            "LPIPS is not ported to the PyTorch build yet: it comes with the "
-            "evaluation networks, item 15 (ROADMAP.md)")
+    same-named ground truth in ``gt_dir``, computed on ``device``; mean
+    LPIPS too when ``lpips_weights`` names an existing file."""
     dev = resolve_device(device)
-    psnrs, ssims = [], []
+    lp = None
+    if lpips_weights and os.path.exists(lpips_weights):
+        from .lpips import lpips_fn
+        lp = lpips_fn(lpips_weights, device=dev)
+    psnrs, ssims, lpipss = [], [], []
     gt_files = dict(_load_dir(gt_dir))
     for name, img in _load_dir(render_dir):
         if name not in gt_files:
@@ -49,8 +51,13 @@ def evaluate_dirs(render_dir: str, gt_dir: str,
         b = torch.as_tensor(gt_files[name], device=dev)
         psnrs.append(float(psnr(a, b)))
         ssims.append(float(ssim(a, b)))
-    return {"n": len(psnrs), "psnr": float(np.mean(psnrs)) if psnrs else None,
-            "ssim": float(np.mean(ssims)) if ssims else None}
+        if lp is not None:
+            lpipss.append(float(lp(a, b)))
+    out = {"n": len(psnrs), "psnr": float(np.mean(psnrs)) if psnrs else None,
+           "ssim": float(np.mean(ssims)) if ssims else None}
+    if lpipss:
+        out["lpips"] = float(np.mean(lpipss))
+    return out
 
 
 def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
@@ -63,12 +70,11 @@ def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
     from scipy import linalg
     diff = mu1 - mu2
     with warnings.catch_warnings():
-        warnings.simplefilter("ignore")   # LinAlgWarning on singular input
-        covmean, _ = linalg.sqrtm(sigma1 @ sigma2, disp=False)
-    if not np.isfinite(covmean).all():
-        offset = np.eye(sigma1.shape[0]) * eps
-        covmean, _ = linalg.sqrtm(
-            (sigma1 + offset) @ (sigma2 + offset), disp=False)
+        warnings.simplefilter("ignore")   # LinAlgWarning when singular
+        covmean = linalg.sqrtm(sigma1 @ sigma2)
+        if not np.isfinite(covmean).all():
+            offset = np.eye(sigma1.shape[0]) * eps
+            covmean = linalg.sqrtm((sigma1 + offset) @ (sigma2 + offset))
     if np.iscomplexobj(covmean):
         if not np.allclose(np.diagonal(covmean).imag, 0.0, atol=1e-3):
             raise ValueError(

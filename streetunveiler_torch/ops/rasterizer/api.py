@@ -65,6 +65,66 @@ def _gather_records(packT, idx):
     return packT.index_select(1, idx).contiguous()
 
 
+@torch.no_grad()
+def bin_inputs_for_camera(means3d, scales, quats, opacities, w2c, K,
+                          settings: RasterizeSettings,
+                          center2d_offset=None):
+    """Full-frame, slab-shiftable binning inputs (no gradient):
+    ``(center2d, ext, depth, valid, cull)`` computed once with the FULL
+    camera. A tile-sharded step computes them for its shard of the
+    surfels, all-gathers them over ``tile`` and derives each slab's
+    binning with ``bin_slab_from_inputs``; ``valid`` is the full frame's
+    on-screen test (slab visibility, a subset, is derived per slab)."""
+    zeros3 = torch.zeros((means3d.shape[0], 3), device=means3d.device)
+    sur = preprocess_surfels(means3d, scales, quats, opacities, zeros3,
+                             w2c, K, settings,
+                             center2d_offset=center2d_offset)
+    return sur.center2d, sur.ext, sur.depth, sur.valid, sur.cull
+
+
+@torch.no_grad()
+def bin_slab_from_inputs(inputs, row0: int, width: int, slab_h: int,
+                         duplicate_capacity: int,
+                         max_tiles_per_surfel: int = 256):
+    """Slab binning from full-frame ``bin_inputs_for_camera`` outputs.
+
+    The slab camera is the full camera with ``cy -= row0`` (an exact crop),
+    which acts linearly on every input: ``center2d``'s y moves by −row0;
+    ``ext`` is invariant; the cull table's constant term becomes
+    A + row0·C (k(p) = A + px·B + py·C with py → py − row0), and B, C,
+    ρ_max and d²max are invariant; ``valid`` is the full frame's validity
+    and the slab's on-screen test."""
+    c2d, ext, depth, valid, cull = inputs
+    r0 = torch.tensor(float(row0), dtype=torch.float32, device=c2d.device)
+    c2d_s = c2d - torch.stack([torch.zeros_like(r0), r0])
+    cull_s = cull.clone()
+    cull_s[:, 0:3] = cull[:, 0:3] + r0 * cull[:, 6:9]
+    on_s = ((c2d_s[:, 0] + ext[:, 0] > 0)
+            & (c2d_s[:, 0] - ext[:, 0] < width)
+            & (c2d_s[:, 1] + ext[:, 1] > 0)
+            & (c2d_s[:, 1] - ext[:, 1] < slab_h))
+    return bin_surfels_stream(c2d_s, ext, depth, valid & on_s, width, slab_h,
+                              TILE_W, TILE_H, duplicate_capacity,
+                              max_tiles_per_surfel, cull=cull_s)
+
+
+def shift_packT(packT, row0: int):
+    """Re-express full-camera packed records [rec, N(+1)] for a row-slab
+    crop. The slab camera differs from the full camera only by the
+    principal point ``cy -= row0``, which acts linearly on the records:
+    the y-components of M's stored columns (rows 1, 4) lose row0 × their
+    z-components (rows 2, 5), and the projected center's y (row 7) moves
+    by −row0; depth, opacity, color, normal and the payload do not depend
+    on K. Differentiable (a linear map). A zero padding column stays
+    non-contributing (its opacity row is 0)."""
+    r0 = float(row0)
+    out = packT.clone()
+    out[1] = packT[1] - r0 * packT[2]
+    out[4] = packT[4] - r0 * packT[5]
+    out[7] = packT[7] - r0
+    return out
+
+
 def encode_extra(extra_payload, class_gates):
     """Fold ``class_gates`` [N, G] bool into one exact-float bitmask column
     appended after ``extra_payload``. Returns (pack_extra, n_gates)."""

@@ -132,8 +132,8 @@ def _dump(dirp, imgs):
 
 
 def test_eval_paths_match_jax(tmp_path):
-    """``tests/test_eval_paths.py``'s cases (but the VGG FID, which comes
-    with the evaluation networks) on both packages."""
+    """``tests/test_eval_paths.py``'s cases on both packages (the VGG FID
+    and LPIPS: ``tests/test_torch_eval.py``)."""
     rng = np.random.default_rng(0)
     gt = [rng.random((32, 32, 3)).astype(np.float32) for _ in range(3)]
     near = [np.clip(g + rng.normal(0, 0.01, g.shape), 0, 1
@@ -147,9 +147,14 @@ def test_eval_paths_match_jax(tmp_path):
     assert got["psnr"] > 35 and got["ssim"] > 0.9
     assert abs(got["psnr"] - want["psnr"]) < 1e-4
     assert abs(got["ssim"] - want["ssim"]) < 1e-6
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tmetrics.evaluate_dirs(str(tmp_path / "r"), str(tmp_path / "gt"),
-                               lpips_weights="w.npz", device="cpu")
+    # a weight file that does not exist is skipped, as the JAX package
+    # skips it: no LPIPS
+    got = tmetrics.evaluate_dirs(str(tmp_path / "r"), str(tmp_path / "gt"),
+                                 lpips_weights=str(tmp_path / "w.npz"),
+                                 device="cpu")
+    want = jmetrics.evaluate_dirs(str(tmp_path / "r"), str(tmp_path / "gt"),
+                                  lpips_weights=str(tmp_path / "w.npz"))
+    assert set(got) == set(want) == {"n", "psnr", "ssim"}
 
     a = rng.normal(size=(500, 8))
     b = rng.normal(size=(500, 8)) + 3.0

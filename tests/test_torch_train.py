@@ -411,8 +411,9 @@ def test_checkpoint_roundtrip_with_jax(setup, tmp_path):
 def test_cli_train_on_cpu(tmp_path):
     """``python -m streetunveiler_torch.cli.train --device cpu`` at a tiny
     size: cfg_args.json readable by the JAX package, cameras.json, the
-    PLY and the checkpoint; multi-device options and unknown scene kinds
-    are refused (the sky is
+    PLY and the checkpoint; ``--multihost`` without a launcher's
+    environment and unknown scene kinds are refused (the mesh flags:
+    ``tests/test_torch_loop_sharded.py``; the sky is
     ported: ``test_cli_train_sky_semantics_late_phase``; ``--profile``:
     ``tests/test_torch_render_cli.py``)."""
     from streetunveiler_torch.cli import train as cli_train
@@ -435,9 +436,9 @@ def test_cli_train_on_cpu(tmp_path):
         os.path.join(out, "checkpoint", "iteration_6"), device="cpu")
     assert it == 6 and sky is None
     np.testing.assert_array_equal(np_(st.params.xyz), np_(state.params.xyz))
-    for flag in (["--tile_devices", "2"], ["--multihost"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            cli_train.main(["--model_path", out, "--device", "cpu"] + flag)
+    with pytest.raises(SystemExit, match="torchrun"):
+        cli_train.main(["--model_path", out, "--device", "cpu",
+                        "--multihost"])
     with pytest.raises(SystemExit):
         cli_train.main(["--model_path", out, "--device", "cpu", "--scene",
                         "unknown"])
