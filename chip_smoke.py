@@ -960,7 +960,8 @@ def train_phases(torch, state, cam, cap, bg, gt, gt_sem):
     """The training slice at full width; returns what the kernels line
     needs of it."""
     from streetunveiler_torch.config import OptimizationParams
-    from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel
+    from streetunveiler_torch import trace
+    from streetunveiler_torch.ops.rasterizer import kernel
     from streetunveiler_torch.train.step import bin_step, train_step
 
     # ---- K2 against its plain version, nq 6 and 12, every loss term on
@@ -974,11 +975,11 @@ def train_phases(torch, state, cam, cap, bg, gt, gt_sem):
     # TRAIN_STEPS photometric steps, with the schedule's loss at
     # TRAIN_ITER0, real Adam updates and densification statistics
     opt = OptimizationParams()
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     state, opt_state, losses, overflow = untimed_steps(
         torch, state, cam, cap, bg, gt, gt_sem, opt)
     torch.cuda.synchronize()
-    launches = dict(cuda_lib.launch_counts)
+    launches = dict(trace.launch_counts)
     steps = TRAIN_STEPS + 1
     finite = finite_state(torch, state, opt_state)
     tracked = int((state.denom > 0).sum())
@@ -1058,9 +1059,9 @@ def late_phases(torch, state, cam, cap, bg, gt, gt_sem, trained):
     trained state (``trained_args``, by name)."""
     from streetunveiler_torch.config import OptimizationParams
     from streetunveiler_torch.models.sky import init_sky
+    from streetunveiler_torch import trace
     from streetunveiler_torch.ops.rasterizer import (RasterizeSettings,
-                                                     cuda_lib, kernel,
-                                                     rasterize)
+                                                     kernel, rasterize)
     from streetunveiler_torch.train.step import (bin_step, init_optimizer,
                                                  train_step)
     opt = OptimizationParams()
@@ -1101,7 +1102,7 @@ def late_phases(torch, state, cam, cap, bg, gt, gt_sem, trained):
     # ---- the late path: TRAIN_STEPS + 1 steps, every loss term on
     opt_state = init_optimizer(state)
     sky_opt = None
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     losses, overflow = [], False
     for i in range(TRAIN_STEPS + 1):
         b = bin_step(state, cam, duplicate_capacity=cap, device="cuda")
@@ -1113,7 +1114,7 @@ def late_phases(torch, state, cam, cap, bg, gt, gt_sem, trained):
         losses.append(float(m["loss"]))
         overflow = overflow or bool(m["overflow"])
     torch.cuda.synchronize()
-    launches = dict(cuda_lib.launch_counts)
+    launches = dict(trace.launch_counts)
     steps = TRAIN_STEPS + 1
     finite = finite_state(torch, state, opt_state, sky, sky_opt)
     falls = losses[-1] < losses[1]
@@ -1754,6 +1755,7 @@ def train_scene_synthetic(torch, late=False, model_dir=None):
     from streetunveiler_torch.scene.scene import Scene
     from streetunveiler_torch.train.checkpoint import load_checkpoint
     from streetunveiler_torch.train.loop import evaluate_views
+    from streetunveiler_torch import trace
     from streetunveiler_torch.ops.rasterizer import cuda_lib
 
     iters = 300
@@ -1768,7 +1770,7 @@ def train_scene_synthetic(torch, late=False, model_dir=None):
                            sky_params=sky0)
     flags = (["--semantics", "--sky", "--semantic_dist_from_iter", "150"]
              if late else [])
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     with (contextlib.nullcontext(model_dir) if model_dir else
           tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR)) as tmp:
         t0 = time.perf_counter()
@@ -1788,7 +1790,7 @@ def train_scene_synthetic(torch, late=False, model_dir=None):
         ply = os.path.exists(os.path.join(tmp, "point_cloud",
                                           f"iteration_{iters}",
                                           "point_cloud.ply"))
-    launches = dict(cuda_lib.launch_counts)
+    launches = dict(trace.launch_counts)
     sky_ok = (sky is None) if not late else (
         sky is not None and float((sky.mlp_b[-1] - sky0.mlp_b[-1]).abs()
                                   .max()) > 0)
@@ -2025,11 +2027,12 @@ def tool_phases(torch, photo_args, late_args, k2_photo, trained_args):
     backward at full width; ``k2_photo`` K2's line on the former;
     ``trained_args`` the late backward's on each trained state, by name
     (``late_trained_check``). Returns the kernels-line rows."""
-    from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
+    from streetunveiler_torch.ops.rasterizer import kernel, tiles
+    from streetunveiler_torch import trace
     from streetunveiler_torch.tools import (bisect_bwd, bisect_fwd,
                                             micro_prefix, micro_reduce,
                                             street, timing)
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     t_start = time.perf_counter()
 
     # ---- against the plain versions, on the dense stack
@@ -2232,7 +2235,7 @@ def tool_phases(torch, photo_args, late_args, k2_photo, trained_args):
                       library_ms=t4_lib_ms)
     all_ok = all_ok and t4_ok
     torch.cuda.synchronize()
-    launches = dict(cuda_lib.launch_counts)
+    launches = dict(trace.launch_counts)
     emit("tools_summary", seconds=time.perf_counter() - t_start,
          tool_launches={k: launches[k] for k in ("bisect_fwd", "bisect_bwd",
                                                  "micro_reduce",
@@ -2264,7 +2267,7 @@ def capture_graph(torch, fn, replayed, calls, replays):
     call on a side stream), replayed once. A wrapper counts its launch
     once, at capture; the kernel launches of the ``replays`` replays to
     come and of the first are added to ``replayed`` (a Counter by key)."""
-    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch import trace
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -2272,11 +2275,11 @@ def capture_graph(torch, fn, replayed, calls, replays):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    before = dict(cuda_lib.launch_counts)
+    before = dict(trace.launch_counts)
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
-    for k, n in cuda_lib.launch_counts.items():
+    for k, n in trace.launch_counts.items():
         replayed[k] += (n - before.get(k, 0)) * (replays + 1)
     graph.replay()
     torch.cuda.synchronize()
@@ -2360,11 +2363,11 @@ def probe_phases(torch):
     (every kernel must launch, and every probe's laundered blend must
     equal the unlaundered one bit for bit); then every variant timed.
     Returns the kernels-line rows."""
-    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch import trace
     from streetunveiler_torch.tools import (micro_floor, probe_compose4,
                                             probe_mmt3, probe_tax, street,
                                             timing)
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     t_start = time.perf_counter()
     rows, all_ok = {}, True
 
@@ -2454,14 +2457,14 @@ def probe_phases(torch):
 
     # ---- the probes' path: each tool once through its entry points
     torch.cuda.synchronize()
-    checks = dict(cuda_lib.launch_counts)
-    cuda_lib.reset_launch_counts()
+    checks = dict(trace.launch_counts)
+    trace.reset_launch_counts()
     micro_floor.run(rec, visits, n_tiles, reps=0)
     compose = probe_compose4.run(ctx, reps=0)
     tax = probe_tax.run(ctx, reps=0)
     probe_mmt3.run(w, b, reps=0)
     torch.cuda.synchronize()
-    path = dict(cuda_lib.launch_counts)
+    path = dict(trace.launch_counts)
     keys = ("micro_floor_visit", "micro_floor_linear", "identity_stack",
             "identity", "mmt3")
     acc0, lk0 = compose[0]["out"]
@@ -2585,7 +2588,7 @@ def probe_phases(torch):
     torch.cuda.synchronize()
     # every launch of the group: the checks against the plain versions,
     # the probes' path and the timings, and the CUDA graphs' replays
-    launches = {k: checks.get(k, 0) + cuda_lib.launch_counts[k] + replayed[k]
+    launches = {k: checks.get(k, 0) + trace.launch_counts[k] + replayed[k]
                 for k in keys}
     emit("probes_summary", seconds=time.perf_counter() - t_start,
          t5_bytes=t5_bytes, t5_chunks_read=chunks_read, t6_bytes=t6_bytes,
@@ -2822,9 +2825,9 @@ def probe_redesign_phases(torch, ptxas):
     from CUDA-graph replays (graph_ms) in the same turns, beside matmul's
     and the launch floor. Returns the kernels-line numbers and the checks'
     verdict."""
-    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch import trace
     from streetunveiler_torch.tools import micro_reduce, probe_mmt3
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     t_start = time.perf_counter()
 
     def turns(time_fn, first, new):
@@ -2929,7 +2932,7 @@ def probe_redesign_phases(torch, ptxas):
               "replay over the calls (graph_ms), mean of two turns each, "
               "in the turns first, new, new, first")
     torch.cuda.synchronize()
-    launches = {key: cuda_lib.launch_counts[key] + replayed[key]
+    launches = {key: trace.launch_counts[key] + replayed[key]
                 for key in ("micro_reduce", "mmt3")}
     emit("probe_redesign_summary", seconds=time.perf_counter() - t_start,
          tool_launches=launches, within_tolerance=ok)
@@ -3125,9 +3128,10 @@ def bisect_bwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas,
     checks on the trained states' streams ``trained_args``, by name
     (``late_trained_check``). Returns the kernels-row numbers and the
     verdict."""
-    from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
+    from streetunveiler_torch.ops.rasterizer import kernel, tiles
+    from streetunveiler_torch import trace
     from streetunveiler_torch.tools import bisect_bwd, street, timing
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     t_start = time.perf_counter()
     ok = True
     dense = street.dense_streams("cuda")
@@ -3202,7 +3206,7 @@ def bisect_bwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas,
               "launches; gated_k2_split at (12, 5): full minus each "
               "variant, the floor's own time as walk_and_staging")
     torch.cuda.synchronize()
-    launches = cuda_lib.launch_counts["bisect_bwd"]
+    launches = trace.launch_counts["bisect_bwd"]
     emit("bisect_bwd_sm90_summary", seconds=time.perf_counter() - t_start,
          tool_launches=launches, within_tolerance=ok)
     photo = forms["photometric"]["variants"]["full"]
@@ -3250,8 +3254,9 @@ def bisect_fwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas,
     states' streams ``trained_args``, by name (``late_trained_check``).
     Returns the kernels-row numbers and the verdict."""
     from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
+    from streetunveiler_torch import trace
     from streetunveiler_torch.tools import bisect_fwd, street, timing
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     t_start = time.perf_counter()
     ok = True
     dense = street.dense_streams("cuda")
@@ -3340,7 +3345,7 @@ def bisect_fwd_sm90_phases(torch, photo_args, sem_args, late_args, ptxas,
               "(12, 5): full minus each variant, the floor's own time as "
               "walk_and_staging, a negative transmittance_product as 0")
     torch.cuda.synchronize()
-    launches = cuda_lib.launch_counts["bisect_fwd"]
+    launches = trace.launch_counts["bisect_fwd"]
     emit("bisect_fwd_sm90_summary", seconds=time.perf_counter() - t_start,
          tool_launches=launches, within_tolerance=ok)
     photo = forms["photometric"]["variants"]["full"]
@@ -3379,9 +3384,9 @@ def micro_prefix_redesign(torch, ptxas):
     (median of TOOL_REPS CUDA-event times), each tensor-core mode's gap to
     serial, ptxas; the serial mode's instruction floor. Returns the
     kernels-row numbers and the verdict."""
-    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch import trace
     from streetunveiler_torch.tools import micro_prefix, timing
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     t_start = time.perf_counter()
     rec = micro_prefix.make_input()
     pairs = micro_prefix.NCHUNK * micro_prefix.S * micro_prefix.P
@@ -3442,7 +3447,7 @@ def micro_prefix_redesign(torch, ptxas):
               "turns first, new, new, first); ratio_to_serial against the "
               "redesign's serial mode")
     torch.cuda.synchronize()
-    launches = cuda_lib.launch_counts["micro_prefix"]
+    launches = trace.launch_counts["micro_prefix"]
     emit("micro_prefix_redesign_summary",
          seconds=time.perf_counter() - t_start, tool_launches=launches,
          within_tolerance=ok)
@@ -3491,10 +3496,10 @@ def micro_floor_redesign(torch, ptxas, probes):
     split into phase A alone, phase B alone and tile 0's segment alone,
     their bounds (phase group 10's, ``probes``) and shares; T6's library
     composite. Returns the kernels-row numbers and the verdict."""
-    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch import trace
     from streetunveiler_torch.tools import micro_floor as mf
     from streetunveiler_torch.tools import timing
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     t_start = time.perf_counter()
     replayed = collections.Counter()
     rec = mf.make_input()
@@ -3658,7 +3663,7 @@ def micro_floor_redesign(torch, ptxas, probes):
               "width 128 291 MB of bytes); composite_ms: three library "
               "calls, not one")
     torch.cuda.synchronize()
-    launches = {k: cuda_lib.launch_counts[k] + replayed[k]
+    launches = {k: trace.launch_counts[k] + replayed[k]
                 for k in ("micro_floor_visit", "micro_floor_linear")}
     emit("micro_floor_redesign_summary",
          seconds=time.perf_counter() - t_start, tool_launches=launches,
@@ -3702,6 +3707,7 @@ def split_launch(torch, kind, xp, blocks=0, threads=0, key="identity"):
     body on <<<blocks, threads>>>. Returns the copy (xp itself for the
     empty kernel, which copies nothing); a copy counts under ``key``."""
     from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch import trace
     from streetunveiler_torch.tools import probe_tax
     index, stream = probe_tax._check_padded(xp)
     out = xp if kind == "empty" else torch.empty_like(xp)
@@ -3710,7 +3716,7 @@ def split_launch(torch, kind, xp, blocks=0, threads=0, key="identity"):
         xp.numel(), index, stream)
     cuda_lib.check(rc, f"identity split launch ({kind})")
     if kind != "empty":
-        cuda_lib.launch_counts[key] += 1
+        trace.launch_counts[key] += 1
     return out
 
 
@@ -3789,9 +3795,9 @@ def identity_phases(torch, off, surf, ptxas):
     many sources and outputs as exceed the L2 four times (``rotated``),
     their share of the byte bound no more than SHARE_OF_BOUND_MAX; ptxas;
     the bound. Returns the kernels-row numbers and the verdict."""
-    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch import trace
     from streetunveiler_torch.tools import probe_compose4, probe_tax
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     t_start = time.perf_counter()
     replayed = collections.Counter()
     pad = probe_tax.pad_lanes(off)
@@ -3924,7 +3930,7 @@ def identity_phases(torch, off, surf, ptxas):
     regs = {k: ptxas.get(k) for k in ("T7/T8 copy<256>", "T7/T8 copy sm90",
                                       "T7/T8 copy<1024>", "T7/T8 empty")}
     torch.cuda.synchronize()
-    launches = {k: cuda_lib.launch_counts[k] + replayed[k]
+    launches = {k: trace.launch_counts[k] + replayed[k]
                 for k in ("identity", "identity_stack")}
     emit("identity_redesign", bit_exact=bits, sizes=sized, ptxas=regs,
          l2_bytes=l2, share_of_bound_max=SHARE_OF_BOUND_MAX,
@@ -3965,8 +3971,8 @@ PATH_KERNELS = ("expand", "blend_fwd", "blend_bwd", "blend_fwd_gated",
                 "blend_bwd_gated")
 
 
-def path_launches(cuda_lib):
-    return {k: cuda_lib.launch_counts[k] for k in PATH_KERNELS}
+def path_launches(trace):
+    return {k: trace.launch_counts[k] for k in PATH_KERNELS}
 
 
 def render_cli_synthetic(torch, model_dir, label, train_test_psnr=None,
@@ -3979,14 +3985,14 @@ def render_cli_synthetic(torch, model_dir, label, train_test_psnr=None,
     ``unveiled_round``: the round whose checkpoint it must render."""
     import numpy as np
     from streetunveiler_torch.cli import render as cli_render
-    from streetunveiler_torch.ops.rasterizer import cuda_lib
-    cuda_lib.reset_launch_counts()
+    from streetunveiler_torch import trace
+    trace.reset_launch_counts()
     t0 = time.perf_counter()
     s = cli_render.main(["--model_path", model_dir, "--semantics",
                          "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = path_launches(cuda_lib)
+    launches = path_launches(trace)
     it_dir = f"ours_{s['iteration']}"
     missing = []
     for split in ("train", "test"):
@@ -4034,9 +4040,9 @@ def unveil_cli_synthetic(torch, model_dir):
     K1, K2 and K3 launched."""
     import numpy as np
     from streetunveiler_torch.cli import unveil as cli_unveil
-    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch import trace
     from streetunveiler_torch.utils.ply import load_surfel_ply
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     t0 = time.perf_counter()
     s = cli_unveil.main(["--model_path", model_dir, "--semantic_class",
                          "vehicle", "--all", "--inpainter", "diffuse",
@@ -4044,7 +4050,7 @@ def unveil_cli_synthetic(torch, model_dir):
                          "--device", "cuda"] + UNVEIL_FLAGS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = path_launches(cuda_lib)
+    launches = path_launches(trace)
     ply = os.path.join(s["workspace"], "checkpoint", "point_cloud.ply")
     n_ply = load_surfel_ply(ply)["xyz"].shape[0] if os.path.exists(ply) \
         else 0
@@ -4098,16 +4104,16 @@ def render_full_width(torch, state, cam, cap):
     from streetunveiler_torch.mesh import (estimate_bounds, fuse_views,
                                            keep_large_clusters, volume_mesh)
     from streetunveiler_torch.models.sky import init_sky
-    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch import trace
     sky = init_sky(torch.Generator().manual_seed(0), device="cuda")
     bg = torch.zeros(3, device="cuda")
 
     def frame():
         return render_view(cam, state, bg, sky, cap, True, "cuda")
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     img, depth, nrm, sem = frame()
     torch.cuda.synchronize()
-    launches = path_launches(cuda_lib)
+    launches = path_launches(trace)
     finite = all(bool(torch.isfinite(t).all())
                  for t in (img, depth, nrm, sem))
     hw = (cam.height, cam.width)
@@ -4145,13 +4151,13 @@ def render_full_width(torch, state, cam, cap):
     def fuse():
         return fuse_views(cams, state, bg=bg, voxel_size=voxel,
                           duplicate_capacity=tcap, device="cuda")
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     vol = fuse()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    tsdf_launches = path_launches(cuda_lib)
+    tsdf_launches = path_launches(trace)
     voxels = vol.tsdf.numel()
     vol_dims = tuple(vol.tsdf.shape)
     observed = int((vol.weight > 0).sum())
@@ -4200,7 +4206,7 @@ def reoptimize_full_width(torch, state, cam, cap):
     from streetunveiler_torch.config import ReOptimizationParams
     from streetunveiler_torch.models.deltas import zero_deltas
     from streetunveiler_torch.models.gaussians import prune_mask
-    from streetunveiler_torch.ops.rasterizer import cuda_lib
+    from streetunveiler_torch import trace
     from streetunveiler_torch.pipeline import masks as pmasks
     from streetunveiler_torch.pipeline.inpaint import DiffuseFillInpainter
     from streetunveiler_torch.pipeline.reoptimize import reoptimize_step
@@ -4252,10 +4258,10 @@ def reoptimize_full_width(torch, state, cam, cap):
             base, deltas, opt_state, train_mask, cams[i % 4],
             targets[i % 4], bg, i + 1, opt, duplicate_capacity=rcap)
         return loss
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     loss0 = float(step())
     torch.cuda.synchronize()
-    launches = path_launches(cuda_lib)
+    launches = path_launches(trace)
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -4514,6 +4520,7 @@ def data_train_cli(torch, root, colmap, scene, state0, smi):
     import numpy as np
     from streetunveiler_torch.cli import train as cli_train
     from streetunveiler_torch.config import OptimizationParams
+    from streetunveiler_torch import trace
     from streetunveiler_torch.ops.rasterizer import cuda_lib
     from streetunveiler_torch.train.loop import evaluate_views
     from streetunveiler_torch.train.step import (bin_step, init_optimizer,
@@ -4524,7 +4531,7 @@ def data_train_cli(torch, root, colmap, scene, state0, smi):
              [scene.train_images[i] for i in pick])
     bg = torch.zeros(3, device="cuda")
     psnr0, _ = evaluate_views(state0, *views, bg, max_views=DATA_EVAL_VIEWS)
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as model_dir:
         t0 = time.perf_counter()
         state, reports = cli_train.main([
@@ -4534,7 +4541,7 @@ def data_train_cli(torch, root, colmap, scene, state0, smi):
             "--log_every", "1", "--resolution", "1", "--device", "cuda"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = path_launches(cuda_lib)
+    launches = path_launches(trace)
     psnr1, _ = evaluate_views(state, *views, bg, max_views=DATA_EVAL_VIEWS)
     # the first window holds the capacity probe, the last the PLY's save
     step_ms = [1e3 / r.iters_per_s for r in reports[1:-1]]
@@ -4823,7 +4830,8 @@ def multi_phases(torch, state, cam, cap, smi):
     from streetunveiler_torch import renderer
     from streetunveiler_torch.config import OptimizationParams
     from streetunveiler_torch.models.sky import init_sky
-    from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel
+    from streetunveiler_torch import trace
+    from streetunveiler_torch.ops.rasterizer import kernel
     from streetunveiler_torch.ops.rasterizer.api import (
         _gather_records, bin_inputs_for_camera, bin_slab_from_inputs,
         rasterize_stream, shift_packT)
@@ -4871,11 +4879,11 @@ def multi_phases(torch, state, cam, cap, smi):
         checks = {}
         launches = None
         for zero in (False, True):
-            cuda_lib.reset_launch_counts()
+            trace.reset_launch_counts()
             s2, o2, _, _, m2 = sharded(*fresh(), zero=zero)
             torch.cuda.synchronize()
             if not zero:
-                launches = path_launches(cuda_lib)
+                launches = path_launches(trace)
             rel = {k: abs(float(m2[k]) - float(ref_m[k]))
                    / max(abs(float(ref_m[k])), 1e-30) for k in keys}
             grad = {}
@@ -4900,7 +4908,7 @@ def multi_phases(torch, state, cam, cap, smi):
                  mesh=[1, 1], iteration=MULTI_ITER, rel_err=rel,
                  rtol=MULTI_RTOL, surfel_grads=grad,
                  loss=float(m2["loss"]), loss_train_step=float(ref_m["loss"]),
-                 launches=launches if not zero else path_launches(cuda_lib),
+                 launches=launches if not zero else path_launches(trace),
                  within_tolerance=ok,
                  note="the sharded late step (semantics, class_dist, sky) "
                       "against train_step from copies of one state; "
@@ -5094,6 +5102,7 @@ def main(argv=None):
     from streetunveiler_torch.ops.rasterizer import (RasterizeSettings,
                                                      cuda_lib, rasterize,
                                                      rasterize_oracle)
+    from streetunveiler_torch import trace
     from streetunveiler_torch.ops.rasterizer import kernel, tiles
     from streetunveiler_torch.ops.rasterizer.api import (_gather_records,
                                                          rasterize_stream)
@@ -5172,12 +5181,12 @@ def main(argv=None):
         return partial_run(torch, only, state, cam, kind, smi)
 
     # ---- 5a. the main path, once, with the launch counts read around it
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     cap = renderer.measure_duplicate_capacity([cam], state, device="cuda")
     res = renderer.render(cam, state, bg, duplicate_capacity=cap,
                           device="cuda")
     torch.cuda.synchronize()
-    launches = dict(cuda_lib.launch_counts)
+    launches = dict(trace.launch_counts)
     fields = ("render", "rend_alpha", "rend_normal", "rend_dist",
               "surf_depth", "surf_normal", "expected_depth", "median_depth")
     finite = {f: bool(torch.isfinite(getattr(res, f)).all()) for f in fields}

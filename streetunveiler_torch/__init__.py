@@ -30,6 +30,9 @@ Layer map, from the entry points down:
     models/, scene/, utils/, evaluation/, config.py, convert.py
                            state and densification, cameras, synthetic scene,
                            PLY, cfg_args.json, metrics, weight carry-over
+    trace.py               the profiler ranges and counters of these layers
+                           (on while a torch.profiler collects) and the
+                           kernels' launch counts
 
 Entry points take ``device="cuda"`` by default and raise when no CUDA
 device is present; they run on the CPU only when asked (``device="cpu"``),

@@ -38,20 +38,31 @@ def render_view(cam, state, bg, sky_params=None, duplicate_capacity=None,
     """One view as the render CLI writes it: (image [H, W, 3] with the sky
     composited as ``img + sky·(1 − α)``, surface depth [H, W], world-space
     normals [H, W, 3], semantic probabilities [H, W, 6] or None), tensors
-    on ``device``."""
+    on ``device``. While tracing: the range ``view`` and its stages
+    ``view.render``, ``view.sky``, ``view.normals``, ``view.semantic``."""
+    from .. import trace
     from ..models.sky import render_sky
     from ..renderer import render, render_semantic
-    res = render(cam, state, bg, duplicate_capacity=duplicate_capacity,
-                 device=device)
-    img = res.render
-    if sky_params is not None:
-        sky = render_sky(sky_params, cam.height, cam.width, cam.K,
-                         torch.linalg.inv(cam.w2c))
-        img = img + sky * (1.0 - res.rend_alpha)[..., None]
-    nrm = res.rend_normal_world(cam)
-    sem = render_semantic(cam, state, duplicate_capacity=duplicate_capacity,
-                          device=device) if semantics else None
-    return img, res.surf_depth, nrm, sem
+    with trace.span("view"):
+        with trace.span("view.render"):
+            res = render(cam, state, bg,
+                         duplicate_capacity=duplicate_capacity,
+                         device=device)
+        img = res.render
+        if sky_params is not None:
+            with trace.span("view.sky"):
+                sky = render_sky(sky_params, cam.height, cam.width, cam.K,
+                                 torch.linalg.inv(cam.w2c))
+                img = img + sky * (1.0 - res.rend_alpha)[..., None]
+        with trace.span("view.normals"):
+            nrm = res.rend_normal_world(cam)
+        sem = None
+        if semantics:
+            with trace.span("view.semantic"):
+                sem = render_semantic(cam, state,
+                                      duplicate_capacity=duplicate_capacity,
+                                      device=device)
+        return img, res.surf_depth, nrm, sem
 
 
 def main(argv=None):

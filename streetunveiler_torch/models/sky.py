@@ -30,6 +30,7 @@ import dataclasses
 
 import torch
 
+from .. import trace
 from ..device import resolve_device
 from ..ops.sh import sh_basis
 
@@ -175,13 +176,18 @@ def camera_rays(height: int, width: int, K, c2w):
 
 def render_sky(params: SkyParams, height: int, width: int, K, c2w):
     """[H, W, 3] sky image for a camera: ``sky_forward`` over
-    ``camera_rays``, with the shared origin encoded once."""
-    _, rays_d = camera_rays(height, width, K, c2w)
-    origin = c2w[None, :3, 3]
-    o_enc = torch.cat([hash_encode(params, origin), freq_embed(origin)],
-                      dim=-1)                                 # [1, L·F + 63]
-    d_enc = sh_basis(rays_d, params.sh_bands)                 # [H, W, 16]
-    w0 = params.mlp_w[0]
-    n_d = d_enc.shape[-1]
-    h = d_enc @ w0[:n_d] + (o_enc @ w0[n_d:] + params.mlp_b[0])[0]
-    return _mlp_tail(params, h)
+    ``camera_rays``, with the shared origin encoded once. While tracing,
+    the range ``sky.forward`` holds it and ``sky.backward`` its backward,
+    from the image's node to the parameters' gradients."""
+    with trace.span("sky.forward"):
+        _, rays_d = camera_rays(height, width, K, c2w)
+        origin = c2w[None, :3, 3]
+        o_enc = torch.cat([hash_encode(params, origin), freq_embed(origin)],
+                          dim=-1)                             # [1, L·F + 63]
+        d_enc = sh_basis(rays_d, params.sh_bands)             # [H, W, 16]
+        w0 = params.mlp_w[0]
+        n_d = d_enc.shape[-1]
+        h = d_enc @ w0[:n_d] + (o_enc @ w0[n_d:] + params.mlp_b[0])[0]
+        sky = _mlp_tail(params, h)
+    trace.backward_span("sky.backward", sky, graph=True)
+    return sky

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import trace
 from .kernel import NQ, S_CHUNK, TILE_H, TILE_W, blend_stream, ch_for, \
     pack_geometry_T
 from .preprocess import preprocess_surfels
@@ -42,10 +43,11 @@ def bin_for_camera(means3d, scales, quats, opacities, w2c, K,
     if duplicate_capacity is None:
         duplicate_capacity = default_duplicate_capacity(
             n, settings.width, settings.height)
-    zeros3 = torch.zeros((n, 3), device=means3d.device)
-    sur = preprocess_surfels(means3d, scales, quats, opacities, zeros3,
-                             w2c, K, settings,
-                             center2d_offset=center2d_offset)
+    with trace.span("bin.preprocess"):
+        zeros3 = torch.zeros((n, 3), device=means3d.device)
+        sur = preprocess_surfels(means3d, scales, quats, opacities, zeros3,
+                                 w2c, K, settings,
+                                 center2d_offset=center2d_offset)
     return bin_surfels_stream(sur.center2d, sur.ext, sur.depth, sur.valid,
                               settings.width, settings.height, TILE_W,
                               TILE_H, duplicate_capacity,
@@ -61,8 +63,11 @@ def _gather_records(packT, idx):
     reference column N (the zero record); it takes their gradients and
     ``pack_geometry_T``'s backward drops it. On a card the scatter adds
     with atomics, so the sums' order, and their last bits, vary from run
-    to run."""
-    return packT.index_select(1, idx).contiguous()
+    to run. While tracing, the range ``raster.record_scatter`` holds the
+    scatter (hooks on the ``index_select`` node)."""
+    recT = packT.index_select(1, idx)
+    trace.backward_span("raster.record_scatter", recT)
+    return recT.contiguous()
 
 
 @torch.no_grad()
@@ -150,6 +155,13 @@ def rasterize_stream(recT, radii, settings: RasterizeSettings, binning,
     acc, _ = blend_stream(recT, binning.tile_offsets, binning.tiles_x,
                           binning.tiles_y, settings, nq, gates_n,
                           binning.tile_order)
+    with trace.span("raster.finalize"):
+        return _assemble(acc, radii, settings, binning, bg, nq, gates_n)
+
+
+def _assemble(acc, radii, settings: RasterizeSettings, binning, bg, nq: int,
+              gates_n: int) -> RenderOutput:
+    """The blend's accumulators [T, PIX, ch] → a ``RenderOutput``."""
     ch = ch_for(nq)
     ch_tot = ch + 4 * gates_n
 
@@ -207,6 +219,10 @@ def rasterize(means3d, scales, quats, opacities, colors, w2c, K,
     its own capacity rules. ``class_gates`` [N, G] bool runs G gated
     per-class distortion chains in the same blend (``out.class_dist``
     [H, W, G]: each class's distortion as if only its surfels rendered).
+
+    While tracing (``streetunveiler_torch.trace``) it counts the stream
+    that K1, K2, the gather and the scatter process: ``raster.slots`` (its
+    capacity) and ``raster.duplicates`` (min(demand, capacity)).
     """
     n = means3d.shape[0]
     c = colors.shape[-1]
@@ -223,16 +239,24 @@ def rasterize(means3d, scales, quats, opacities, colors, w2c, K,
         duplicate_capacity = default_duplicate_capacity(
             n, settings.width, settings.height)
 
-    sur = preprocess_surfels(means3d, scales, quats, opacities, colors,
-                             w2c, K, settings, center2d_offset=center2d_offset)
-    nq = NQ + (0 if extra_payload is None else extra_payload.shape[1])
-    pack_extra, gates_n = encode_extra(extra_payload, class_gates)
+    with trace.span("raster.preprocess"):
+        sur = preprocess_surfels(means3d, scales, quats, opacities, colors,
+                                 w2c, K, settings,
+                                 center2d_offset=center2d_offset)
+        nq = NQ + (0 if extra_payload is None else extra_payload.shape[1])
+        pack_extra, gates_n = encode_extra(extra_payload, class_gates)
     if binning is None:
         binning = bin_surfels_stream(
             sur.center2d.detach(), sur.ext, sur.depth.detach(), sur.valid,
             settings.width, settings.height, TILE_W, TILE_H,
             duplicate_capacity, max_tiles_per_surfel, cull=sur.cull)
-    recT = _gather_records(pack_geometry_T(sur, n, pack_extra),
-                           binning.sorted_surfel)
+    if trace.enabled():
+        cap = binning.sorted_surfel.shape[0]
+        trace.count("raster.slots", cap)
+        trace.count("raster.duplicates", torch.clamp(binning.demand,
+                                                     max=cap))
+    with trace.span("raster.gather"):
+        recT = _gather_records(pack_geometry_T(sur, n, pack_extra),
+                               binning.sorted_surfel)
     return rasterize_stream(recT, sur.radius, settings, binning, bg=bg,
                             nq=nq, gates_n=gates_n)

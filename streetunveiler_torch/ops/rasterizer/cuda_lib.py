@@ -8,9 +8,8 @@ sources and flags, so an edited source rebuilds and an unchanged one is
 reused. Each source compiles in its own ``nvcc`` process, all started
 together, then one link.
 
-Each kernel wrapper bumps its entry of ``launch_counts`` where it launches
-its kernel, and nowhere else, so a caller can show that a run went
-through the kernels.
+Each kernel wrapper bumps its entry of ``streetunveiler_torch.trace.
+launch_counts`` where it launches its kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -36,21 +35,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v"]
 
-launch_counts = {"blend_fwd": 0, "blend_bwd": 0, "expand": 0,
-                 "blend_fwd_gated": 0, "blend_bwd_gated": 0,
-                 # the measurement tools (streetunveiler_torch/tools/)
-                 "bisect_fwd": 0, "bisect_bwd": 0, "micro_reduce": 0,
-                 "micro_prefix": 0, "micro_floor_visit": 0,
-                 "micro_floor_linear": 0, "identity": 0,
-                 "identity_stack": 0, "mmt3": 0}
-
 _lock = threading.Lock()
 _lib = None
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def _nvcc() -> str:

@@ -41,6 +41,7 @@ import ctypes
 
 import torch
 
+from ... import trace
 from . import cuda_lib
 from .blendmath import map_depth, pair_alpha_depth
 from .types import MEDIAN_T, RasterizeSettings
@@ -327,7 +328,7 @@ def blend_forward_cuda(recT, tile_offsets, tiles_x: int, tiles_y: int,
         ctypes.c_float(settings.t_eps), acc.data_ptr(), lk.data_ptr(), index,
         stream)
     cuda_lib.check(rc, "blend_fwd launch")
-    cuda_lib.launch_counts["blend_fwd_gated" if n_gates else "blend_fwd"] += 1
+    trace.launch_counts["blend_fwd_gated" if n_gates else "blend_fwd"] += 1
     return acc, lk
 
 
@@ -566,7 +567,7 @@ def blend_backward_cuda(recT, tile_offsets, tiles_x: int, tiles_y: int,
         acc.data_ptr(), lk.data_ptr(), dacc.data_ptr(), dgrad.data_ptr(),
         index, stream)
     cuda_lib.check(rc, "blend_bwd launch")
-    cuda_lib.launch_counts["blend_bwd_gated" if n_gates else "blend_bwd"] += 1
+    trace.launch_counts["blend_bwd_gated" if n_gates else "blend_bwd"] += 1
     return dgrad
 
 
@@ -586,8 +587,9 @@ class _BlendStream(torch.autograd.Function):
     @staticmethod
     def forward(ctx, recT, tile_offsets, tiles_x, tiles_y, settings, nq,
                 n_gates, tile_order):
-        acc, lk = blend_forward(recT, tile_offsets, tiles_x, tiles_y,
-                                settings, nq, n_gates, tile_order)
+        with trace.span("raster.blend_fwd"):
+            acc, lk = blend_forward(recT, tile_offsets, tiles_x, tiles_y,
+                                    settings, nq, n_gates, tile_order)
         ctx.mark_non_differentiable(lk)
         ctx.save_for_backward(recT, tile_offsets, acc, lk)
         ctx.blend = (tiles_x, tiles_y, settings, nq, n_gates, tile_order)
@@ -597,9 +599,10 @@ class _BlendStream(torch.autograd.Function):
     def backward(ctx, dacc, dlk):
         recT, tile_offsets, acc, lk = ctx.saved_tensors
         tiles_x, tiles_y, settings, nq, n_gates, tile_order = ctx.blend
-        drecT = blend_backward(recT, tile_offsets, tiles_x, tiles_y,
-                               settings, acc, lk, dacc.contiguous(), nq,
-                               n_gates, tile_order=tile_order)
+        with trace.span("raster.blend_bwd"):
+            drecT = blend_backward(recT, tile_offsets, tiles_x, tiles_y,
+                                   settings, acc, lk, dacc.contiguous(), nq,
+                                   n_gates, tile_order=tile_order)
         return (drecT,) + (None,) * 7
 
 

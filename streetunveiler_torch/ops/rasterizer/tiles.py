@@ -26,6 +26,7 @@ import dataclasses
 
 import torch
 
+from ... import trace
 from . import cuda_lib
 
 S_CHUNK = 128   # the stream capacity is a multiple of this
@@ -192,7 +193,7 @@ def expand_duplicates_cuda(tbl, dup_start, cap: int, tiles_x: int,
                surf_id.data_ptr(), dev.index if dev.index is not None
                else torch.cuda.current_device(), stream)
     cuda_lib.check(rc, f"expand ({design}) launch")
-    cuda_lib.launch_counts["expand"] += 1
+    trace.launch_counts["expand"] += 1
     return tile_id, surf_id
 
 
@@ -290,13 +291,15 @@ def ranked_table(center2d, ext, depth, valid, width: int, height: int,
     w0, w1]) and dup_start [N+1] int32, the cumsum of the per-surfel tile
     counts (dup_start[N] is the uncapped duplicate total). The stages
     ``tile_rects``, ``conic_cull``, ``depth_order``, ``rank_table``."""
-    rects = tile_rects(center2d, ext, valid, width, height, tile_w, tile_h,
-                       max_tiles_per_surfel)
-    nt, cull_cols = rects[4], []
-    if cull is not None:
-        nt, cull_cols = conic_cull(cull, center2d, rects, valid, tile_w,
-                                   tile_h, max_tiles_per_surfel)
-    return rank_table(rects, nt, cull_cols, depth_order(depth, valid))
+    with trace.span("bin.cull"):
+        rects = tile_rects(center2d, ext, valid, width, height, tile_w,
+                           tile_h, max_tiles_per_surfel)
+        nt, cull_cols = rects[4], []
+        if cull is not None:
+            nt, cull_cols = conic_cull(cull, center2d, rects, valid, tile_w,
+                                       tile_h, max_tiles_per_surfel)
+    with trace.span("bin.depth_sort"):
+        return rank_table(rects, nt, cull_cols, depth_order(depth, valid))
 
 
 def tile_order(tile_offsets):
@@ -345,14 +348,16 @@ def bin_surfels_stream(center2d, ext, depth, valid, width: int, height: int,
     tbl, dup_start = ranked_table(center2d, ext, depth, valid, width, height,
                                   tile_w, tile_h, max_tiles_per_surfel, cull)
     total = dup_start[-1]
-    tile_id, surf_id = expand_duplicates(tbl, dup_start, cap, tiles_x,
-                                         n_tiles, cull is not None)
+    with trace.span("bin.expand"):
+        tile_id, surf_id = expand_duplicates(tbl, dup_start, cap, tiles_x,
+                                             n_tiles, cull is not None)
     tile_id = tile_id[:cap]
     surf_id = surf_id[:cap]
 
-    s_tile, s_surf = sort_by_tile(tile_id, surf_id)
-    off = csr_offsets(s_tile, n_tiles)
-    return StreamBinning(sorted_surfel=s_surf, tile_offsets=off,
-                         overflow=total > cap, demand=total,
-                         tiles_x=tiles_x, tiles_y=tiles_y,
-                         tile_order=tile_order(off))
+    with trace.span("bin.tile_sort"):
+        s_tile, s_surf = sort_by_tile(tile_id, surf_id)
+        off = csr_offsets(s_tile, n_tiles)
+        return StreamBinning(sorted_surfel=s_surf, tile_offsets=off,
+                             overflow=total > cap, demand=total,
+                             tiles_x=tiles_x, tiles_y=tiles_y,
+                             tile_order=tile_order(off))

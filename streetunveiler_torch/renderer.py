@@ -15,6 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from . import trace
 from .device import resolve_device
 from .models.gaussians import SurfelState
 from .ops.depth_normal import depth_to_normal
@@ -143,8 +144,11 @@ def render(camera: Camera, state: SurfelState, bg,
     opac = state.get_opacity()[:, 0]
     if opacity_mask is not None:
         opac = torch.where(opacity_mask.to(dev), opac, torch.zeros_like(opac))
-    colors = (colors_override.to(dev) if colors_override is not None
-              else surfel_colors(state, camera, active_sh_degree))
+    if colors_override is not None:
+        colors = colors_override.to(dev)
+    else:
+        with trace.span("raster.sh"):
+            colors = surfel_colors(state, camera, active_sh_degree)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
 
     settings = _settings_for(camera, scale_modifier)
@@ -160,7 +164,8 @@ def render(camera: Camera, state: SurfelState, bg,
                         class_gates=(None if class_gates is None
                                      else class_gates.to(dev)),
                         binning=binning)
-    return finalize_render(out, camera, depth_ratio=depth_ratio)
+    with trace.span("raster.finalize"):
+        return finalize_render(out, camera, depth_ratio=depth_ratio)
 
 
 def finalize_render(out, camera: Camera, depth_ratio: float = 0.0

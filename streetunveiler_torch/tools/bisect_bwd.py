@@ -63,6 +63,7 @@ import time
 import numpy as np
 import torch
 
+from streetunveiler_torch import trace
 from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
 from streetunveiler_torch.ops.rasterizer.blendmath import (map_depth,
                                                            pair_alpha_depth)
@@ -435,7 +436,7 @@ def bisect_backward_cuda(variant, recT, tile_offsets, tiles_x: int,
     else:
         rc = lib.su_bisect_bwd(*head, *tail)
     cuda_lib.check(rc, f"bisect_bwd {variant} ({design}) launch")
-    cuda_lib.launch_counts["bisect_bwd"] += 1
+    trace.launch_counts["bisect_bwd"] += 1
     return dgrad
 
 

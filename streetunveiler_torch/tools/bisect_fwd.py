@@ -80,6 +80,7 @@ import time
 import numpy as np
 import torch
 
+from streetunveiler_torch import trace
 from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
 from streetunveiler_torch.ops.rasterizer.blendmath import (map_depth,
                                                            pair_alpha_depth)
@@ -378,7 +379,7 @@ def bisect_forward_cuda(variant, recT, tile_offsets, tiles_x: int,
     else:
         rc = lib.su_bisect_fwd(*head, *tail)
     cuda_lib.check(rc, f"bisect_fwd {variant} ({design}) launch")
-    cuda_lib.launch_counts["bisect_fwd"] += 1
+    trace.launch_counts["bisect_fwd"] += 1
     return acc, None if variant == "floor_nolk" else lk
 
 

@@ -101,8 +101,8 @@ PATH_KERNELS = ("expand", "blend_fwd", "blend_bwd", "blend_fwd_gated",
 
 
 def _kernel_launches():
-    from ..ops.rasterizer import cuda_lib
-    return {k: cuda_lib.launch_counts[k] for k in PATH_KERNELS}
+    from .. import trace
+    return {k: trace.launch_counts[k] for k in PATH_KERNELS}
 
 
 def main(argv=None):

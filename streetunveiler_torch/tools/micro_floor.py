@@ -57,6 +57,7 @@ import json
 import numpy as np
 import torch
 
+from streetunveiler_torch import trace
 from streetunveiler_torch.ops.rasterizer import cuda_lib, tiles
 
 REC, S, PIX, CH = 24, 128, 512, 12
@@ -310,7 +311,7 @@ def micro_floor_visit_cuda(variant, recT, tile_of, chunk_of, first,
                         segment_order=design == "redesign")
     out = _launch(_INDEX[variant], S, recT, csr, n_tiles, chunk_of,
                   first, variant == "base", design)
-    cuda_lib.launch_counts["micro_floor_visit"] += 1
+    trace.launch_counts["micro_floor_visit"] += 1
     return out
 
 
@@ -332,7 +333,7 @@ def micro_floor_linear_cuda(sblock, recT, tile_map, n_tiles, csr=None,
         csr = step_csr(tile_map, n_tiles, segment_order=design == "redesign")
     (out,) = _launch(_LINEAR, sblock, recT, csr, n_tiles, None, None, False,
                      design)
-    cuda_lib.launch_counts["micro_floor_linear"] += 1
+    trace.launch_counts["micro_floor_linear"] += 1
     return out
 
 
@@ -359,7 +360,7 @@ def _redesign_phase(phase, variant, recT, csr, n_blocks, work,
         index, key, sblock = _INDEX[variant], "micro_floor_visit", S
     out = _launch(index, sblock, recT, csr, n_blocks, chunk_of, first,
                   variant == "base", "redesign", phase, work)
-    cuda_lib.launch_counts[key] += 1
+    trace.launch_counts[key] += 1
     return out if phase == "fold" else None
 
 

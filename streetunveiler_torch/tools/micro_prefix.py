@@ -40,6 +40,7 @@ import re
 
 import torch
 
+from streetunveiler_torch import trace
 from streetunveiler_torch.ops.rasterizer import cuda_lib
 
 P, S, REC = 512, 128, 24
@@ -178,7 +179,7 @@ def micro_prefix_cuda(mode: str, rec, design: str = "redesign"):
                n_tiles * CPT, out.data_ptr(), index,
                torch.cuda.current_stream(rec.device).cuda_stream)
     cuda_lib.check(rc, f"micro_prefix {mode} ({design}) launch")
-    cuda_lib.launch_counts["micro_prefix"] += 1
+    trace.launch_counts["micro_prefix"] += 1
     return out
 
 

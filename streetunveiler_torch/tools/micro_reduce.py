@@ -34,6 +34,7 @@ import json
 
 import torch
 
+from streetunveiler_torch import trace
 from streetunveiler_torch.ops.rasterizer import cuda_lib
 
 P, S = 512, 128
@@ -121,7 +122,7 @@ def micro_reduce_cuda(mode: str, k: int, x, design: str = "redesign"):
                partial.data_ptr(), out.data_ptr(), index,
                torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check(rc, f"micro_reduce {mode} ({design}) launch")
-    cuda_lib.launch_counts["micro_reduce"] += 1
+    trace.launch_counts["micro_reduce"] += 1
     return out
 
 

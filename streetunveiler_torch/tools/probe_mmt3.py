@@ -42,6 +42,7 @@ import json
 import numpy as np
 import torch
 
+from streetunveiler_torch import trace
 from streetunveiler_torch.ops.rasterizer import cuda_lib
 
 P, S, Q = 512, 128, 7
@@ -126,7 +127,7 @@ def mmt3_cuda(w, b, design: str = "redesign"):
     rc = entry(w.data_ptr(), b.data_ptr(), *[o.data_ptr() for o in outs],
                index, torch.cuda.current_stream(w.device).cuda_stream)
     cuda_lib.check(rc, f"mmt3 ({design}) launch")
-    cuda_lib.launch_counts["mmt3"] += 1
+    trace.launch_counts["mmt3"] += 1
     return tuple(outs)
 
 

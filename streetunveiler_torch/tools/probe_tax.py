@@ -41,6 +41,7 @@ import json
 
 import torch
 
+from streetunveiler_torch import trace
 from streetunveiler_torch.ops.rasterizer import cuda_lib
 
 LANES = 128
@@ -89,7 +90,7 @@ def copy_cuda(xp, key="identity", design="redesign"):
         else lib.su_identity_first
     rc = entry(xp.data_ptr(), out.data_ptr(), xp.numel(), index, stream)
     cuda_lib.check(rc, f"identity launch ({design})")
-    cuda_lib.launch_counts[key] += 1
+    trace.launch_counts[key] += 1
     return out
 
 

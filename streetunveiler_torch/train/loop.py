@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import OptimizationParams
 from ..device import resolve_device, strict_fp32
 from ..models.gaussians import (SurfelState, densify_and_prune, prune_mask,
@@ -279,47 +280,49 @@ def train_scene(scene, state: SurfelState, opt: OptimizationParams,
     dev = resolve_device(device)
     strict_fp32()
     iterations = iterations or opt.iterations
-    state = state.to(dev)
-    cams = [c.to(dev) for c in scene.train_cameras]
-    images = [torch.as_tensor(np.asarray(img, np.float32), device=dev)
-              for img in scene.train_images]
-    semantics = None
-    if use_semantics and opt.enable_semantic_loss:
-        semantics = [None if s is None
-                     else torch.as_tensor(np.asarray(s), device=dev)
-                     for s in scene.train_semantics]
-    n_cams = len(cams)
+    # each call's start-up: the targets' upload, the capacity probe
+    with trace.span("train.start"):
+        state = state.to(dev)
+        cams = [c.to(dev) for c in scene.train_cameras]
+        images = [torch.as_tensor(np.asarray(img, np.float32), device=dev)
+                  for img in scene.train_images]
+        semantics = None
+        if use_semantics and opt.enable_semantic_loss:
+            semantics = [None if s is None
+                         else torch.as_tensor(np.asarray(s), device=dev)
+                         for s in scene.train_semantics]
+        n_cams = len(cams)
 
-    bg = torch.zeros(3, device=dev) if bg is None else torch.as_tensor(
-        bg, dtype=torch.float32, device=dev)
-    opt_state = init_optimizer(state) if opt_state is None \
-        else opt_state.to(dev)
-    if sky_params is not None:
-        sky_params = sky_params.to(dev)
-        sky_opt_state = adam_init(sky_params) if sky_opt_state is None \
-            else sky_opt_state.to(dev)
+        bg = torch.zeros(3, device=dev) if bg is None else torch.as_tensor(
+            bg, dtype=torch.float32, device=dev)
+        opt_state = init_optimizer(state) if opt_state is None \
+            else opt_state.to(dev)
+        if sky_params is not None:
+            sky_params = sky_params.to(dev)
+            sky_opt_state = adam_init(sky_params) if sky_opt_state is None \
+                else sky_opt_state.to(dev)
 
-    rng = np.random.default_rng(seed)
-    sched = _Schedule(scene, opt, n_cams, dev, seed, iterations,
-                      save_iterations, log_every, eval_every, eval_max_views,
-                      callback, logger)
-    order: list[int] = []
+        rng = np.random.default_rng(seed)
+        sched = _Schedule(scene, opt, n_cams, dev, seed, iterations,
+                          save_iterations, log_every, eval_every,
+                          eval_max_views, callback, logger)
+        order: list[int] = []
 
-    # demand-driven duplicate capacity: the init state's true demand over
-    # a camera sample (exact at any probe capacity), with densification
-    # headroom, before the first step
-    dup_cap = duplicate_capacity
-    if dup_cap is None:
-        dup_cap = default_duplicate_capacity(state.capacity, cams[0].width,
-                                             cams[0].height)
-    need = 0
-    for i in sorted({0, n_cams // 2, n_cams - 1}):
-        b = bin_step(state, cams[i], duplicate_capacity=2048, device=dev)
-        need = max(need, int(b.demand))
-    if need * 1.15 > dup_cap:
-        dup_cap = round_capacity(need, headroom=1.5)
-        print(f"NOTE: init duplicate demand {need} exceeds capacity; "
-              f"sized duplicate_capacity={dup_cap}", flush=True)
+        # demand-driven duplicate capacity: the init state's true demand
+        # over a camera sample (exact at any probe capacity), with
+        # densification headroom, before the first step
+        dup_cap = duplicate_capacity
+        if dup_cap is None:
+            dup_cap = default_duplicate_capacity(
+                state.capacity, cams[0].width, cams[0].height)
+        need = 0
+        for i in sorted({0, n_cams // 2, n_cams - 1}):
+            b = bin_step(state, cams[i], duplicate_capacity=2048, device=dev)
+            need = max(need, int(b.demand))
+        if need * 1.15 > dup_cap:
+            dup_cap = round_capacity(need, headroom=1.5)
+            print(f"NOTE: init duplicate demand {need} exceeds capacity; "
+                  f"sized duplicate_capacity={dup_cap}", flush=True)
 
     for iteration in range(start_iteration + 1, iterations + 1):
         if not order:
@@ -327,16 +330,18 @@ def train_scene(scene, state: SurfelState, opt: OptimizationParams,
         idx = int(order.pop())
 
         gt_sem = semantics[idx] if semantics is not None else None
-        binning = bin_step(state, cams[idx], duplicate_capacity=dup_cap,
+        with trace.span("train.iteration"):
+            binning = bin_step(state, cams[idx], duplicate_capacity=dup_cap,
+                               device=dev)
+            state, opt_state, sky_params, sky_opt_state, metrics = \
+                train_step(state, opt_state, cams[idx], images[idx], bg,
+                           iteration, opt, sky_params=sky_params,
+                           sky_opt_state=sky_opt_state, gt_semantic=gt_sem,
+                           class_dist=iteration > opt.semantic_dist_from_iter,
+                           duplicate_capacity=dup_cap, binning=binning,
                            device=dev)
-        state, opt_state, sky_params, sky_opt_state, metrics = train_step(
-            state, opt_state, cams[idx], images[idx], bg, iteration, opt,
-            sky_params=sky_params, sky_opt_state=sky_opt_state,
-            gt_semantic=gt_sem,
-            class_dist=iteration > opt.semantic_dist_from_iter,
-            duplicate_capacity=dup_cap, binning=binning, device=dev)
-        state, opt_state = sched.after_step(iteration, state, opt_state)
-        dup_cap = sched.grown_capacity(iteration, metrics, dup_cap)
+            state, opt_state = sched.after_step(iteration, state, opt_state)
+            dup_cap = sched.grown_capacity(iteration, metrics, dup_cap)
 
         if sched.log_due(iteration):
             def panel():

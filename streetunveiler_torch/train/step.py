@@ -20,6 +20,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..config import OptimizationParams
 from ..device import resolve_device
 from ..models.gaussians import (SurfelParams, SurfelState,
@@ -102,42 +103,44 @@ def stage1_loss(state: SurfelState, camera: Camera, gt_image, bg,
     if sky_params is not None:
         sky_image = render_sky(sky_params, camera.height, camera.width,
                                camera.K, torch.linalg.inv(camera.w2c))
-    if sky_image is not None:
-        image = image + sky_image * (1.0 - res.rend_alpha)[..., None]
-    ll1 = l1_loss(image, gt_image)
-    lssim = ssim(image, gt_image)
-    loss = (1.0 - opt.lambda_dssim) * ll1 + opt.lambda_dssim * (1.0 - lssim)
+    with trace.span("loss"):
+        if sky_image is not None:
+            image = image + sky_image * (1.0 - res.rend_alpha)[..., None]
+        ll1 = l1_loss(image, gt_image)
+        lssim = ssim(image, gt_image)
+        loss = ((1.0 - opt.lambda_dssim) * ll1
+                + opt.lambda_dssim * (1.0 - lssim))
 
-    if iteration > opt.normal_consist_from_iter:
-        normal_error = 1.0 - torch.sum(res.rend_normal * res.surf_normal,
-                                       dim=-1)
-        loss = loss + opt.lambda_normal * torch.mean(normal_error)
-    if iteration > opt.semantic_dist_from_iter:
-        loss = loss + opt.lambda_dist * torch.mean(res.rend_dist)
-    if iteration > opt.shrinking_from_iter:
-        mean_op = torch.sum(state.get_opacity()) / torch.clamp(
-            state.num_alive, min=1)
-        loss = loss + opt.lambda_shrink * mean_op
+        if iteration > opt.normal_consist_from_iter:
+            normal_error = 1.0 - torch.sum(res.rend_normal * res.surf_normal,
+                                           dim=-1)
+            loss = loss + opt.lambda_normal * torch.mean(normal_error)
+        if iteration > opt.semantic_dist_from_iter:
+            loss = loss + opt.lambda_dist * torch.mean(res.rend_dist)
+        if iteration > opt.shrinking_from_iter:
+            mean_op = torch.sum(state.get_opacity()) / torch.clamp(
+                state.num_alive, min=1)
+            loss = loss + opt.lambda_shrink * mean_op
 
-    sem_loss = torch.zeros((), device=image.device)
-    if want_sem:
-        sky_prior = F.one_hot(torch.tensor(CONCERNED_IND["sky"]),
-                              NUM_CONCERNED).to(torch.float32).to(
-                                  image.device)
-        probs = res.extra + sky_prior * (1.0 - res.rend_alpha)[..., None]
-        sem_loss = semantic_ce_loss(probs, gt_semantic)
-        loss = loss + opt.semantic_loss_ratio * sem_loss
-        if gates is not None:
-            loss = loss + opt.lambda_dist * torch.sum(
-                torch.mean(res.class_dist, dim=(0, 1)))
+        sem_loss = torch.zeros((), device=image.device)
+        if want_sem:
+            sky_prior = F.one_hot(torch.tensor(CONCERNED_IND["sky"]),
+                                  NUM_CONCERNED).to(torch.float32).to(
+                                      image.device)
+            probs = res.extra + sky_prior * (1.0 - res.rend_alpha)[..., None]
+            sem_loss = semantic_ce_loss(probs, gt_semantic)
+            loss = loss + opt.semantic_loss_ratio * sem_loss
+            if gates is not None:
+                loss = loss + opt.lambda_dist * torch.sum(
+                    torch.mean(res.class_dist, dim=(0, 1)))
 
-    with torch.no_grad():
-        aux = dict(image=image.detach(), l1=ll1.detach(),
-                   ssim=lssim.detach(), radii=res.radii.detach(),
-                   psnr=psnr(torch.clamp(image, 0.0, 1.0), gt_image),
-                   semantic=sem_loss.detach(), overflow=res.overflow,
-                   demand=res.demand)
-    return loss, aux
+        with torch.no_grad():
+            aux = dict(image=image.detach(), l1=ll1.detach(),
+                       ssim=lssim.detach(), radii=res.radii.detach(),
+                       psnr=psnr(torch.clamp(image, 0.0, 1.0), gt_image),
+                       semantic=sem_loss.detach(), overflow=res.overflow,
+                       demand=res.demand)
+        return loss, aux
 
 
 def bin_step(state: SurfelState, camera: Camera,
@@ -146,8 +149,9 @@ def bin_step(state: SurfelState, camera: Camera,
     binning=...)``. Kept a separate call as in the JAX package; on the card
     the split costs nothing."""
     dev = resolve_device(device)
-    return bin_camera(camera.to(dev), state.to(dev),
-                      duplicate_capacity=duplicate_capacity)
+    with trace.span("train.bin"):
+        return bin_camera(camera.to(dev), state.to(dev),
+                          duplicate_capacity=duplicate_capacity)
 
 
 def train_step(state: SurfelState, opt_state: AdamState, camera: Camera,
@@ -191,34 +195,38 @@ def train_step(state: SurfelState, opt_state: AdamState, camera: Camera,
             lambda t: t.detach().requires_grad_(True))
         sky_opt_state = (adam_init(sky_params) if sky_opt_state is None
                          else sky_opt_state.to(dev))
-    loss, aux = stage1_loss(st, camera, gt_image, bg, iteration, opt,
-                            sky_params=sky_leaves, sky_image=sky_image,
-                            gt_semantic=gt_semantic, class_dist=class_dist,
-                            center2d_offset=zeros2d,
-                            duplicate_capacity=duplicate_capacity,
-                            binning=binning)
+    with trace.span("train.forward"):
+        loss, aux = stage1_loss(st, camera, gt_image, bg, iteration, opt,
+                                sky_params=sky_leaves, sky_image=sky_image,
+                                gt_semantic=gt_semantic,
+                                class_dist=class_dist,
+                                center2d_offset=zeros2d,
+                                duplicate_capacity=duplicate_capacity,
+                                binning=binning)
     inputs = [leaves[n] for n in names] + [zeros2d]
     if sky_leaves is not None:
         inputs += list(sky_leaves.named_tensors().values())
-    grads = torch.autograd.grad(loss, inputs)
+    with trace.span("train.backward"):
+        grads = torch.autograd.grad(loss, inputs)
     screen_grads = grads[len(names)]
 
-    lrs = make_lrs(opt, iteration, state.spatial_scale)
-    params, opt_state = adam_update(
-        SurfelParams(**dict(zip(names, grads[:len(names)]))), opt_state,
-        state.params, lrs)
-    state = dataclasses.replace(state, params=params)
-    if sky_params is not None:
-        it = iter(grads[len(names) + 1:])
-        sky_grads = sky_params.map(lambda _: next(it))
-        sky_params, sky_opt_state = adam_update(
-            sky_grads, sky_opt_state, sky_params, SKY_LR, eps=SKY_EPS)
+    with trace.span("train.update"):
+        lrs = make_lrs(opt, iteration, state.spatial_scale)
+        params, opt_state = adam_update(
+            SurfelParams(**dict(zip(names, grads[:len(names)]))), opt_state,
+            state.params, lrs)
+        state = dataclasses.replace(state, params=params)
+        if sky_params is not None:
+            it = iter(grads[len(names) + 1:])
+            sky_grads = sky_params.map(lambda _: next(it))
+            sky_params, sky_opt_state = adam_update(
+                sky_grads, sky_opt_state, sky_params, SKY_LR, eps=SKY_EPS)
 
-    # densification statistics, gated off after densify_until_iter
-    track = iteration < opt.densify_until_iter
-    visible = (aux["radii"] > 0) & track
-    state = add_densification_stats(state, screen_grads, aux["radii"],
-                                    visible)
+        # densification statistics, gated off after densify_until_iter
+        track = iteration < opt.densify_until_iter
+        visible = (aux["radii"] > 0) & track
+        state = add_densification_stats(state, screen_grads, aux["radii"],
+                                        visible)
 
     metrics = dict(loss=loss.detach(), l1=aux["l1"], ssim=aux["ssim"],
                    psnr=aux["psnr"], n_alive=state.num_alive,

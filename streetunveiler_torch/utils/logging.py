@@ -1,8 +1,8 @@
 """Training log (counterpart of ``streetunveiler_tpu/utils/logging.py``):
 scalars as JSON lines in ``train_log.jsonl``, rendered panels as PNG files
-under the log directory (the JAX package mirrors both to TensorBoard), a
-rays/s meter, and ``profile_trace``, a ``torch.profiler`` trace of a few
-steps written as a Chrome trace."""
+under the log directory (the JAX package mirrors both to TensorBoard), and
+``profile_trace``, a ``torch.profiler`` trace of a few steps written as a
+Chrome trace."""
 
 from __future__ import annotations
 
@@ -38,12 +38,6 @@ class TrainLogger:
         Image.fromarray(arr).save(path)
         return path
 
-    def rays_per_s(self, step: int, pixels: int, iters: int,
-                   seconds: float) -> float:
-        v = pixels * iters / max(seconds, 1e-9)
-        self.scalars(step, {"perf/rays_per_s": v})
-        return v
-
     def close(self) -> None:
         self.jsonl.close()
 
@@ -57,6 +51,16 @@ class profile_trace:
         with profile_trace(os.path.join(model_path, "logs")):
             for _ in range(3):
                 step(...)
+
+    While it collects, the port's own ranges (``streetunveiler_torch.
+    trace``) are in the trace: a step's ``train.forward``,
+    ``train.backward`` and ``train.update``; inside them ``raster.sh``,
+    ``raster.preprocess``, ``raster.gather``, ``raster.blend_fwd``,
+    ``raster.finalize``, ``sky.forward``, ``loss``, ``raster.blend_bwd``,
+    ``raster.record_scatter`` and ``sky.backward``; the binning's
+    ``train.bin`` with ``bin.preprocess``, ``bin.cull``,
+    ``bin.depth_sort``, ``bin.expand`` and ``bin.tile_sort``; the loop's
+    ``train.start`` and ``train.iteration``; the render CLI's ``view``.
 
     Prints the path it wrote, or why there is no trace when the profiler
     cannot start.

@@ -16,7 +16,7 @@ from streetunveiler_tpu.ops.rasterizer import RasterizeSettings as JSettings
 from streetunveiler_tpu.ops.rasterizer import tiles as jtiles
 from streetunveiler_tpu.ops.rasterizer.preprocess import \
     preprocess_surfels as jpre
-from streetunveiler_torch.ops.rasterizer import cuda_lib
+from streetunveiler_torch import trace
 from streetunveiler_torch.ops.rasterizer import tiles as ttiles
 
 torch.set_num_threads(1)
@@ -137,6 +137,6 @@ def test_plain_k3_matches_pallas_expand(binning_inputs, use_cull, cap):
 
 
 def test_cpu_binning_launches_no_kernel(binning_inputs):
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     bin_both(binning_inputs, 64 * 1024, True)
-    assert cuda_lib.launch_counts["expand"] == 0
+    assert trace.launch_counts["expand"] == 0

@@ -50,8 +50,8 @@ from streetunveiler_tpu.ops.rasterizer import kernel as jkernel  # noqa: E402
 from streetunveiler_tpu.ops.rasterizer import tiles as jtiles  # noqa: E402
 from streetunveiler_tpu.ops.rasterizer.preprocess import \
     preprocess_surfels as jpre  # noqa: E402
-from streetunveiler_torch.ops.rasterizer import (RasterizeSettings,  # noqa: E402
-                                                 cuda_lib, kernel)
+from streetunveiler_torch import trace  # noqa: E402
+from streetunveiler_torch.ops.rasterizer import RasterizeSettings, kernel  # noqa: E402
 from streetunveiler_torch.tools import bisect_bwd, bisect_fwd, street  # noqa: E402
 
 torch.set_num_threads(1)
@@ -164,10 +164,10 @@ def test_bisect_fwd_plain_matches_jax_tool(stream, interpret, monkeypatch,
                             _Swapped(exp=lambda x: 1.0 + x))
     want_acc, want_lk = _jax_fwd(stream, jax_variant)
     port_variant = "full" if variant in bisect_fwd.TPU_ONLY else variant
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     acc, lk = bisect_fwd.bisect_forward_plain(port_variant, *stream["port"],
                                               tile_batch=2)
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
     acc = acc.numpy()
     assert acc.shape == want_acc.shape
     if want_lk is None:
@@ -200,9 +200,9 @@ def test_bisect_bwd_plain_matches_jax_tool(stream, interpret, monkeypatch,
     args = stream["port"] + (torch.as_tensor(np.array(stream["acc"])),
                              torch.as_tensor(np.array(stream["lk"])),
                              stream["dacc"], 6, 0)
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     got = bisect_bwd.bisect_backward_plain(variant, *args, tile_batch=2)
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
     got = got.numpy()
     assert np.isfinite(want).all()
     assert not got[:, stream["total"]:].any()

@@ -24,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from streetunveiler_torch.ops.rasterizer import cuda_lib, kernel, tiles
+from streetunveiler_torch import trace
+from streetunveiler_torch.ops.rasterizer import kernel, tiles
 from streetunveiler_torch.tools import bisect_fwd, street
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -91,10 +92,10 @@ def test_sm90_full_equals_production_plain_k1(port_streams, plain, n_gates):
 
 def test_sm90_full_matches_jax_tool(stream, interpret):
     want_acc, want_lk = _jax_fwd(stream, "full")
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     acc, lk = bisect_fwd.bisect_forward("full", *stream["port"],
                                         design="sm90")
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
     lk_ok = lk.numpy() == want_lk
     assert 1.0 - lk_ok.mean() <= 1e-3
     scale = np.maximum(1.0, np.abs(want_acc).max(axis=(0, 1)))
@@ -139,7 +140,7 @@ def test_stand_ins_are_the_same_under_both_designs(plain, variant, n_gates):
 def test_wrappers_take_a_design_and_never_fall_back(port_streams):
     s = port_streams[0]
     order = tiles.tile_order(s[1])
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     for design, kw in (("sm90", dict(tile_order=order)), ("first", {})):
         with pytest.raises(ValueError):   # CPU tensors
             bisect_fwd.bisect_forward_cuda("full", *s, design=design, **kw)
@@ -153,7 +154,7 @@ def test_wrappers_take_a_design_and_never_fall_back(port_streams):
                                        tile_order=order)
     with pytest.raises(ValueError):
         bisect_fwd.bisect_forward("full", *s, design="second")
-    assert cuda_lib.launch_counts["bisect_fwd"] == 0
+    assert trace.launch_counts["bisect_fwd"] == 0
     acc, lk = bisect_fwd.bisect_forward("floor_nolk", *s, design="sm90")
     assert lk is None and bool((acc == acc[..., :1]).all())
 

@@ -27,8 +27,9 @@ import numpy as np
 import pytest
 import torch
 
-from streetunveiler_torch.ops.rasterizer import (RasterizeSettings,
-                                                 cuda_lib, kernel, tiles)
+from streetunveiler_torch import trace
+from streetunveiler_torch.ops.rasterizer import (RasterizeSettings, kernel,
+                                                 tiles)
 from streetunveiler_torch.tools import bisect_bwd, street
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -231,7 +232,7 @@ def test_sm90_floor_is_each_pixels_walk(n_gates):
 def test_wrappers_take_a_design_and_never_fall_back(port_streams):
     a = port_streams[0]
     order = tiles.tile_order(a[1])
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     for design, kw in (("sm90", dict(tile_order=order)), ("first", {})):
         with pytest.raises(ValueError):
             bisect_bwd.bisect_backward_cuda("full", *a, design=design, **kw)
@@ -242,7 +243,7 @@ def test_wrappers_take_a_design_and_never_fall_back(port_streams):
                                         tile_order=order)
     with pytest.raises(ValueError):
         bisect_bwd.bisect_backward("full", *a, design="second")
-    assert cuda_lib.launch_counts["bisect_bwd"] == 0
+    assert trace.launch_counts["bisect_bwd"] == 0
     got = bisect_bwd.bisect_backward("no_dq", *a, design="sm90")
     assert not got[kernel.Q_ROW0:].any()
 

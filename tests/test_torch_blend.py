@@ -32,8 +32,8 @@ from streetunveiler_tpu.ops.rasterizer import rasterize_oracle as joracle
 from streetunveiler_tpu.ops.rasterizer import tiles as jtiles
 from streetunveiler_tpu.ops.rasterizer.preprocess import \
     preprocess_surfels as jpre
-from streetunveiler_torch.ops.rasterizer import (RasterizeSettings,
-                                                 cuda_lib, rasterize,
+from streetunveiler_torch import trace
+from streetunveiler_torch.ops.rasterizer import (RasterizeSettings, rasterize,
                                                  rasterize_oracle)
 from streetunveiler_torch.ops.rasterizer import kernel as tkernel
 
@@ -156,11 +156,11 @@ def _jax_stream(scene, nq, t_eps):
 def test_plain_k1_matches_pallas_blend(scene, nq, t_eps):
     recT, off, tiles_x, tiles_y, jacc, jlk = _jax_stream(scene, nq, t_eps)
     settings = RasterizeSettings(width=64, height=48, t_eps=t_eps)
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     acc, lk = tkernel.blend_forward_plain(
         torch.as_tensor(recT), torch.as_tensor(off), tiles_x, tiles_y,
         settings, nq, tile_batch=4)
-    assert cuda_lib.launch_counts["blend_fwd"] == 0
+    assert trace.launch_counts["blend_fwd"] == 0
     acc, lk = acc.numpy(), lk.numpy()
     assert acc.shape == jacc.shape == (tiles_x * tiles_y, 512, nq + 6)
     lk_ok = lk == jlk

@@ -26,7 +26,8 @@ from streetunveiler_tpu.ops.rasterizer import kernel as jkernel
 from streetunveiler_tpu.ops.rasterizer import tiles as jtiles
 from streetunveiler_tpu.ops.rasterizer.preprocess import \
     preprocess_surfels as jpre
-from streetunveiler_torch.ops.rasterizer import RasterizeSettings, cuda_lib
+from streetunveiler_torch import trace
+from streetunveiler_torch.ops.rasterizer import RasterizeSettings
 from streetunveiler_torch.ops.rasterizer import kernel as tkernel
 
 torch.set_num_threads(1)
@@ -108,12 +109,12 @@ def test_plain_k2_matches_pallas_vjp(scene, nq, t_eps):
     (want,) = vjp((jnp.asarray(dacc), np.zeros(lk.shape, jax.dtypes.float0)))
     want = np.array(want)
     settings = RasterizeSettings(width=64, height=48, t_eps=t_eps)
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     got = tkernel.blend_backward_plain(
         torch.as_tensor(recT), torch.as_tensor(off), tiles_x, tiles_y,
         settings, torch.as_tensor(acc), torch.as_tensor(lk),
         torch.as_tensor(dacc), nq, tile_batch=4)
-    assert cuda_lib.launch_counts["blend_bwd"] == 0
+    assert trace.launch_counts["blend_bwd"] == 0
     got = got.numpy()
     assert got.shape == want.shape == recT.shape
     # the Pallas kernel leaves the chunks it never visits (past the
@@ -187,7 +188,7 @@ def test_blend_stream_backward_runs_k2_path_on_cpu(scene):
     recT, off, tiles_x, tiles_y, _, _, _ = _jax_stream(scene, 6, 1e-4)
     settings = RasterizeSettings(width=64, height=48)
     r = torch.as_tensor(recT).requires_grad_(True)
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     acc, lk = tkernel.blend_stream(r, torch.as_tensor(off), tiles_x,
                                    tiles_y, settings, 6)
     dacc = torch.as_tensor(_dacc(tuple(acc.shape), 6))
@@ -196,7 +197,7 @@ def test_blend_stream_backward_runs_k2_path_on_cpu(scene):
                                         tiles_x, tiles_y, settings,
                                         acc.detach(), lk, dacc, 6)
     np.testing.assert_array_equal(g.numpy(), want.numpy())
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
     assert not lk.requires_grad
     # gated chains read their class bitmask from the row after the
     # payload: append one

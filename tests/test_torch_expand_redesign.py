@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from streetunveiler_tpu.ops.rasterizer import tiles as jtiles
-from streetunveiler_torch.ops.rasterizer import cuda_lib
+from streetunveiler_torch import trace
 from streetunveiler_torch.ops.rasterizer import tiles as ttiles
 
 torch.set_num_threads(1)
@@ -196,7 +196,7 @@ def test_plain_k3_matches_pallas_on_edge_streams(case):
 def test_wrapper_takes_a_design_and_never_falls_back():
     tbl, dup_start, cap = edge_stream("street_like")
     t, d = torch.as_tensor(tbl), torch.as_tensor(dup_start)
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     for design in ttiles.DESIGNS:
         with pytest.raises(ValueError):
             ttiles.expand_duplicates_cuda(t, d, cap, TILES_X, N_TILES, True,
@@ -204,4 +204,4 @@ def test_wrapper_takes_a_design_and_never_falls_back():
     with pytest.raises(ValueError):
         ttiles.expand_duplicates_cuda(t, d, cap, TILES_X, N_TILES, True,
                                       design="second")
-    assert cuda_lib.launch_counts["expand"] == 0
+    assert trace.launch_counts["expand"] == 0

@@ -27,7 +27,7 @@ from jax.experimental import pallas as pl
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
-from streetunveiler_torch.ops.rasterizer import cuda_lib  # noqa: E402
+from streetunveiler_torch import trace  # noqa: E402
 from streetunveiler_torch.tools import micro_floor  # noqa: E402
 
 # the JAX tool puts its own directory first on the import path when
@@ -113,11 +113,11 @@ def test_visit_floor_plain_matches_jax_tool(data, monkeypatch, variant):
     want = _run_jax(monkeypatch, lambda *a: jmicro_floor.build_visit(
         variant, VCAP, N_TILES)(*a), jnp.asarray(rec), jnp.asarray(tile_of),
         jnp.asarray(chunk_of), jnp.asarray(first))
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     got = micro_floor.micro_floor_visit(
         variant, torch.as_tensor(rec), torch.as_tensor(tile_of),
         torch.as_tensor(chunk_of), torch.as_tensor(first), N_TILES)
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
     got = [g.numpy() for g in got]
     assert len(got) == len(want) == (2 if variant == "base" else 1)
     assert got[0].shape == want[0].shape == (N_TILES, 512, 12)
@@ -156,10 +156,10 @@ def test_linear_floor_plain_matches_formula(data, monkeypatch, sblock):
     want = _run_jax(monkeypatch, fn, jnp.asarray(rec), jnp.asarray(tile_map))
     port_map = micro_floor.linear_tile_map(grid, N_TILES)
     np.testing.assert_array_equal(port_map.numpy(), tile_map)
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     got = micro_floor.micro_floor_linear(sblock, torch.as_tensor(rec),
                                          port_map, N_TILES).numpy()
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
     assert got.shape == want[0].shape == (N_TILES, 512, 12)
     formula = _formula(rec, [(b, v, None) for v, b in enumerate(tile_map)],
                        sblock, N_TILES)

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from streetunveiler_torch import trace
 from streetunveiler_torch.ops.rasterizer import cuda_lib, tiles
 from streetunveiler_torch.tools import micro_floor
 
@@ -309,7 +310,7 @@ def test_design_routing_and_refusals():
     rec, tile_of, chunk_of, first = _small()
     n = micro_floor.CPU_TILES
     tile_map = micro_floor.linear_tile_map(rec.shape[1] // 128, n)
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     for design in micro_floor.DESIGNS:
         # a CPU tensor takes the plain version whatever the design
         got = micro_floor.micro_floor_visit("base", rec, tile_of, chunk_of,
@@ -328,7 +329,7 @@ def test_design_routing_and_refusals():
         with pytest.raises(ValueError, match="CUDA"):
             micro_floor.micro_floor_linear_cuda(128, rec, tile_map, n,
                                                 design=design)
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
     for bad in ("sm90", "", None):
         with pytest.raises(ValueError, match="design"):
             micro_floor.micro_floor_visit("base", rec, tile_of, chunk_of,

@@ -37,8 +37,8 @@ from streetunveiler_tpu.ops.rasterizer import rasterize as jrasterize
 from streetunveiler_tpu.ops.rasterizer import tiles as jtiles
 from streetunveiler_tpu.ops.rasterizer.preprocess import \
     preprocess_surfels as jpre
-from streetunveiler_torch.ops.rasterizer import (RasterizeSettings,
-                                                 cuda_lib, rasterize)
+from streetunveiler_torch import trace
+from streetunveiler_torch.ops.rasterizer import RasterizeSettings, rasterize
 from streetunveiler_torch.ops.rasterizer import kernel as tkernel
 
 torch.set_num_threads(1)
@@ -171,11 +171,11 @@ def test_plain_k1_gated_matches_pallas(scenes, name, nq, G, t_eps):
     recT, off, tx, ty, jacc, jlk, _, settings = _jax_stream(
         scenes[name], nq, G, t_eps)
     assert recT.shape[0] == tkernel.rec_for(nq + 1)
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     acc, lk, counts = tkernel.blend_forward_plain(
         torch.as_tensor(recT), torch.as_tensor(off), tx, ty, settings, nq,
         G, tile_batch=4, count_pairs=True)
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
     _check_acc(acc.numpy(), lk.numpy(), jacc, jlk, nq, G, t_eps)
     # the main chain is the ungated blend
     acc0, lk0, counts0 = tkernel.blend_forward_plain(
@@ -263,7 +263,7 @@ def test_blend_stream_gated_runs_plain_path_on_cpu(scenes):
     recT, off, tx, ty, _, _, _, settings = _jax_stream(
         scenes["random"], 6, 3, 1e-4)
     r = torch.as_tensor(recT).requires_grad_(True)
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     acc, lk = tkernel.blend_stream(r, torch.as_tensor(off), tx, ty,
                                    settings, 6, n_gates=3)
     assert acc.shape[-1] == 12 + 12
@@ -273,7 +273,7 @@ def test_blend_stream_gated_runs_plain_path_on_cpu(scenes):
                                         ty, settings, acc.detach(), lk, dacc,
                                         6, 3)
     np.testing.assert_array_equal(g.numpy(), want.numpy())
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
 
 
 @pytest.mark.parametrize("nq,error", [(5, "gated chains at nq"),

@@ -41,6 +41,7 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import micro_prefix as jmicro_prefix  # noqa: E402
 import micro_reduce as jmicro_reduce  # noqa: E402
+from streetunveiler_torch import trace  # noqa: E402
 from streetunveiler_torch.ops.rasterizer import cuda_lib  # noqa: E402
 from streetunveiler_torch.tools import micro_prefix, micro_reduce  # noqa: E402
 
@@ -79,9 +80,9 @@ def test_micro_reduce_plain_matches_jax_tool(x, monkeypatch, mode, k):
     with jax.disable_jit():
         jmicro_reduce.build(JAX_MODE[mode], k)(jnp.asarray(x))
     want = outs[0]                  # the first call's input is x itself
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     got = micro_reduce.micro_reduce(mode, k, torch.as_tensor(x)).numpy()
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
     assert got.shape == want.shape == (512, 128)
     cols = 1 if mode == "pair" else k
     assert not got[:, cols:].any() and not want[:, cols:].any()
@@ -166,9 +167,9 @@ def jax_prefix(prefix_kern, rec):
 @pytest.mark.parametrize("mode", micro_prefix.MODES)
 def test_micro_prefix_plain_matches_formula(rec, jax_prefix, mode):
     want = jax_prefix(JAX_PREFIX_MODE[mode])
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     got = micro_prefix.micro_prefix(mode, torch.as_tensor(rec)).numpy()
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
     assert got.shape == want.shape == (2, 512, 16)
     scale = np.abs(want).max(axis=(0, 1))
     assert scale.min() > 0

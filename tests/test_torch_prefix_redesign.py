@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from streetunveiler_torch import trace
 from streetunveiler_torch.ops.rasterizer import cuda_lib
 from streetunveiler_torch.tools import micro_prefix
 
@@ -282,7 +283,7 @@ def test_sass_loop_counts():
 
 def test_design_selector_launches_or_raises():
     rec = micro_prefix.make_input(66, device="cpu")
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     for design in micro_prefix.DESIGNS:
         with pytest.raises(ValueError):       # a CPU tensor
             micro_prefix.micro_prefix_cuda("serial", rec, design)
@@ -290,7 +291,7 @@ def test_design_selector_launches_or_raises():
         micro_prefix.micro_prefix_cuda("serial", rec, "second")
     with pytest.raises(ValueError):
         micro_prefix.micro_prefix("serial", rec, "second")
-    assert cuda_lib.launch_counts["micro_prefix"] == 0
+    assert trace.launch_counts["micro_prefix"] == 0
     plain = micro_prefix.micro_prefix_plain("mma_bf16", rec)
     for design in micro_prefix.DESIGNS:
         np.testing.assert_array_equal(

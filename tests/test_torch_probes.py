@@ -47,7 +47,7 @@ from streetunveiler_tpu.ops.rasterizer import kernel as jkernel  # noqa: E402
 from streetunveiler_tpu.ops.rasterizer import tiles as jtiles  # noqa: E402
 from streetunveiler_tpu.ops.rasterizer.preprocess import \
     preprocess_surfels as jpre  # noqa: E402
-from streetunveiler_torch.ops.rasterizer import cuda_lib  # noqa: E402
+from streetunveiler_torch import trace  # noqa: E402
 from streetunveiler_torch.tools import (probe_compose4, probe_mmt3,  # noqa: E402
                                         probe_tax, street)
 
@@ -83,9 +83,9 @@ def test_identity_copy_matches_pallas_identity(interpret, n):
     x = np.random.default_rng(n).integers(-2 ** 31, 2 ** 31 - 1, n,
                                           dtype=np.int32)
     want = np.array(jtax._pallas_identity(jnp.asarray(x)))
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     got = probe_tax.identity_copy(torch.as_tensor(x))
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
     assert got.dtype == torch.int32 and got.is_contiguous()
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), x)
@@ -95,9 +95,9 @@ def test_identity_copy_stack_matches_pallas_identity(interpret):
     xs = np.random.default_rng(7).integers(-2 ** 31, 2 ** 31 - 1,
                                            (7, 1000), dtype=np.int32)
     want = jcompose4.pallas_identity(*map(jnp.asarray, xs))
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     got = probe_compose4.identity_copy_stack(*map(torch.as_tensor, xs))
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
     assert len(got) == len(want) == 7
     for g, w, x in zip(got, want, xs):
         np.testing.assert_array_equal(g.numpy(), np.array(w))
@@ -148,12 +148,12 @@ def jax_path():
 
 
 def test_probe_path_laundered_equals_plain_and_jax(port_ctx, jax_path):
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     outs = {m: probe_compose4.make(m, port_ctx)()
             for m in probe_compose4.MODES}
     outs.update({f"tax_{v}_x{c}": probe_tax.make(v, c, port_ctx)()
                  for v, c in probe_tax.VARIANTS})
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
     acc, lk = outs["k_bin"]
     for mode, (a, k) in outs.items():
         assert torch.equal(a, acc) and torch.equal(k, lk), mode
@@ -218,9 +218,9 @@ def test_mmt3_plain_matches_jax_tool(monkeypatch, capsys):
     w, b = probe_mmt3.make_inputs("cpu")
     np.testing.assert_array_equal(w.numpy(), got_in[0])
     np.testing.assert_array_equal(b.numpy(), got_in[1])
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     outs = probe_mmt3.mmt3(w, b)
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
     assert len(outs) == len(got_out) == 4
     for name, g, want in zip(probe_mmt3.WAYS + ("truth",), outs, got_out):
         assert g.shape == want.shape == (512, 7), name

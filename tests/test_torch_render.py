@@ -21,8 +21,7 @@ from streetunveiler_tpu.models import gaussians as jgs
 from streetunveiler_tpu.scene.cameras import Camera as JCamera
 from streetunveiler_tpu.train.checkpoint import _flatten
 from streetunveiler_tpu.utils import ply as jply
-from streetunveiler_torch import convert, renderer
-from streetunveiler_torch.ops.rasterizer import cuda_lib
+from streetunveiler_torch import convert, renderer, trace
 from streetunveiler_torch.scene.cameras import Camera
 from streetunveiler_torch.utils import ply as tply
 
@@ -178,9 +177,9 @@ def test_ply_roundtrip(jax_state, port_state, cameras, tmp_path):
 
 def test_cpu_render_launches_no_kernel(port_state, cameras):
     _, tc = cameras
-    cuda_lib.reset_launch_counts()
+    trace.reset_launch_counts()
     renderer.render(tc, port_state, np.zeros(3, np.float32), device="cpu")
-    assert not any(cuda_lib.launch_counts.values())
+    assert not any(trace.launch_counts.values())
 
 
 GUARD = r"""

@@ -230,9 +230,10 @@ def model_dir(tmp_path_factory):
 
 
 def test_cli_train_profile_and_logger(model_dir, tmp_path):
-    """``--profile`` writes a Chrome trace; ``TrainLogger`` writes
-    scalars as JSON lines and ``train_scene(panel_every=)``'s panels as
-    PNGs."""
+    """``--profile`` writes a Chrome trace that holds the step's own ranges;
+    ``TrainLogger`` writes scalars as JSON lines (the loop's
+    ``perf/rays_per_s`` among them) and ``train_scene(panel_every=)``'s
+    panels as PNGs."""
     import json
 
     from streetunveiler_torch.cli.common import load_scene_info
@@ -241,7 +242,9 @@ def test_cli_train_profile_and_logger(model_dir, tmp_path):
     from streetunveiler_torch.train.loop import train_scene
     from streetunveiler_torch.utils.logging import TrainLogger
     with open(os.path.join(model_dir, "logs", "profile", "trace.json")) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"train.forward", "train.backward"} <= names
     model = load_config(model_dir)["model"]
     scene = Scene(load_scene_info(model, device="cpu"), device="cpu")
     state = scene.create_state()
@@ -250,15 +253,16 @@ def test_cli_train_profile_and_logger(model_dir, tmp_path):
     train_scene(scene, state, load_config(model_dir)["optimization"],
                 iterations=4, log_every=2, logger=logger, panel_every=4,
                 device="cpu")
-    assert logger.rays_per_s(4, 64 * 48, 10, 2.0) == 64 * 48 * 5
     logger.close()
     panels = tmp_path / "logs" / "panels" / "render"
     assert sorted(os.listdir(panels)) == ["000004.png"]
     assert np.asarray(Image.open(panels / "000004.png")).shape == (48, 64, 3)
     with open(tmp_path / "logs" / "train_log.jsonl") as f:
         recs = [json.loads(line) for line in f]
-    assert [r["step"] for r in recs] == [2, 4, 4]
-    assert recs[-1]["perf/rays_per_s"] == 64 * 48 * 5
+    assert [r["step"] for r in recs] == [2, 4]
+    assert recs[-1]["perf/rays_per_s"] == pytest.approx(
+        recs[-1]["perf/iters_per_s"] * 64 * 48) and \
+        recs[-1]["perf/rays_per_s"] > 0
 
 
 def _png(path):
