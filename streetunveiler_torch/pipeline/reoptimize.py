@@ -10,7 +10,16 @@ the masked deltas train for ``opt.iterations`` steps on random frames of
 the accumulated candidate set, with masked L1 + distortion + normal
 losses. The surfel state keeps its capacity; only the deltas train, each
 step through the rasterizer's autograd path (K1 forward; K2 and the record
-scatter backward).
+scatter backward). ``reoptimize_frames`` is that training loop over a
+candidate set, resumable from where a call stopped.
+
+While tracing (``trace.py``): ``unveil.step`` holds one delta step, in it
+``unveil.deltas`` (``apply_deltas``; ``unveil.deltas_bwd`` its backward),
+``unveil.loss`` (the loss after the render) and ``unveil.adam`` (the
+deltas' Adam); ``unveil()`` opens ``unveil.condition`` (a frame's removal
+mask and inpaint-input renders) and ``unveil.inpaint`` (the inpainter).
+Each step counts ``unveil.trainable`` (the rows it trains) and
+``unveil.surfels`` (the base's alive rows).
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import ReOptimizationParams
 from ..device import resolve_device
 from ..models.deltas import apply_deltas, zero_deltas
@@ -42,16 +52,21 @@ def reoptimize_loss(base: SurfelState, deltas: SurfelParams, train_mask,
     against ``target`` [H, W, 3]: L1 + λ_dist·mean(distortion) +
     λ_normal·mean(1 − n_rend·n_surf), the sky composited behind the
     surfels. Returns (loss, image)."""
-    st = apply_deltas(base, deltas, train_mask)
+    with trace.span("unveil.deltas"):
+        st = apply_deltas(base, deltas, train_mask)
+    trace.backward_span("unveil.deltas_bwd", [getattr(st.params, n)
+                                              for n in _NAMES])
     res = render(camera, st, bg, duplicate_capacity=duplicate_capacity,
                  device=base.device)
-    image = res.render
-    if sky_image is not None:
-        image = image + sky_image * (1.0 - res.rend_alpha)[..., None]
-    loss = l1_loss(image, target)
-    loss = loss + opt.lambda_dist * torch.mean(res.rend_dist)
-    normal_err = 1.0 - torch.sum(res.rend_normal * res.surf_normal, dim=-1)
-    loss = loss + opt.lambda_normal * torch.mean(normal_err)
+    with trace.span("unveil.loss"):
+        image = res.render
+        if sky_image is not None:
+            image = image + sky_image * (1.0 - res.rend_alpha)[..., None]
+        loss = l1_loss(image, target)
+        loss = loss + opt.lambda_dist * torch.mean(res.rend_dist)
+        normal_err = 1.0 - torch.sum(res.rend_normal * res.surf_normal,
+                                     dim=-1)
+        loss = loss + opt.lambda_normal * torch.mean(normal_err)
     return loss, image
 
 
@@ -67,16 +82,55 @@ def reoptimize_step(base: SurfelState, deltas: SurfelParams, opt_state,
     the deltas through the rasterizer's backward; Adam (``make_lrs``'
     rates on ``opt``) updates the tensors of ``deltas`` and the moments of
     ``opt_state`` IN PLACE. Returns (deltas, opt_state, loss)."""
-    leaves = {n: getattr(deltas, n).detach().requires_grad_(True)
-              for n in _NAMES}
-    loss, _ = reoptimize_loss(base, SurfelParams(**leaves), train_mask,
-                              camera, target, bg, opt, sky_image,
-                              duplicate_capacity)
-    grads = torch.autograd.grad(loss, [leaves[n] for n in _NAMES])
-    lrs = make_lrs(opt, iteration, base.spatial_scale)
-    deltas, opt_state = adam_update(SurfelParams(**dict(zip(_NAMES, grads))),
-                                    opt_state, deltas, lrs)
+    with trace.span("unveil.step"):
+        if trace.enabled():
+            trace.count("unveil.trainable", torch.as_tensor(
+                train_mask, device=base.device).sum())
+            trace.count("unveil.surfels", base.alive.sum())
+        leaves = {n: getattr(deltas, n).detach().requires_grad_(True)
+                  for n in _NAMES}
+        loss, _ = reoptimize_loss(base, SurfelParams(**leaves), train_mask,
+                                  camera, target, bg, opt, sky_image,
+                                  duplicate_capacity)
+        grads = torch.autograd.grad(loss, [leaves[n] for n in _NAMES])
+        with trace.span("unveil.adam"):
+            lrs = make_lrs(opt, iteration, base.spatial_scale)
+            deltas, opt_state = adam_update(
+                SurfelParams(**dict(zip(_NAMES, grads))), opt_state, deltas,
+                lrs)
     return deltas, opt_state, loss.detach()
+
+
+def reoptimize_frames(base: SurfelState, deltas: SurfelParams, opt_state,
+                      train_mask, cameras, targets, bg, candidates,
+                      first_iteration: int, n_iterations: int,
+                      opt: ReOptimizationParams, rng, order=(),
+                      sky_images=None, duplicate_capacity=None):
+    """Iterations ``first_iteration`` .. ``first_iteration + n_iterations
+    - 1`` of the re-optimization over the frames ``candidates``: each
+    takes the next frame of ``order`` and, once that is empty, of a new
+    permutation of ``candidates`` from ``rng`` (a numpy ``Generator``),
+    and makes one ``reoptimize_step`` against ``targets[frame]``
+    (``cameras``, ``targets`` and ``sky_images`` are indexed by frame;
+    ``deltas`` and ``opt_state`` are updated in place).
+
+    Returns (deltas, opt_state, loss, order): the last step's loss (zero
+    without a step) and the frames the last permutation has left, so that
+    a call given them and the same ``rng`` continues exactly where this
+    one stopped."""
+    dev = base.device
+    order = list(order)
+    loss = torch.zeros((), device=dev)
+    for it in range(first_iteration, first_iteration + n_iterations):
+        if not order:
+            order = list(rng.permutation(candidates))
+        fid = int(order.pop())
+        deltas, opt_state, loss = reoptimize_step(
+            base, deltas, opt_state, train_mask, cameras[fid].to(dev),
+            targets[fid], bg, it, opt,
+            sky_image=None if sky_images is None else sky_images[fid],
+            duplicate_capacity=duplicate_capacity)
+    return deltas, opt_state, loss, order
 
 
 def refill_mask(last_inframe_render, current_render, inpaint_mask):
@@ -140,7 +194,6 @@ def unveil(scene, state: SurfelState, masks, key_frames: Sequence[int],
     editable_remaining = (np.asarray(masks.editable)
                           & ~np.asarray(masks.removed) & alive)
     candidates: list[int] = []
-    loss = torch.zeros((), device=dev)
 
     for frame, last_frame in zip(reversed(keys[:-1]), reversed(keys[1:])):
         cam = scene.train_cameras[frame]
@@ -150,20 +203,24 @@ def unveil(scene, state: SurfelState, masks, key_frames: Sequence[int],
         hide = in_frame & editable_remaining
         editable_remaining = editable_remaining & ~in_frame
 
-        cond = _frame_condition(cam, state, base, bg, duplicate_capacity,
-                                hide_mask=hide)
+        with trace.span("unveil.condition"):
+            cond = _frame_condition(cam, state, base, bg,
+                                    duplicate_capacity, hide_mask=hide)
         if frame_masks is not None and frame in frame_masks:
             mask = np.asarray(frame_masks[frame], bool)
         else:
             mask = _host(cond["mask"])
         rgb_without = _host(cond["rgb_without"])
         if last_inpaint is None:
-            inp = inpainter.inpaint(rgb_without, mask)
+            with trace.span("unveil.inpaint"):
+                inp = inpainter.inpaint(rgb_without, mask)
         else:
             rm = _host(refill_mask(
                 torch.as_tensor(last_inpaint, device=dev),
                 cond["rgb_without"], torch.as_tensor(mask, device=dev)))
-            inp = inpainter.inpaint(rgb_without, rm, reference=last_inpaint)
+            with trace.span("unveil.inpaint"):
+                inp = inpainter.inpaint(rgb_without, rm,
+                                        reference=last_inpaint)
         last_inpaint = inp
         # supervision: inpainted inside the mask, the ground truth outside
         inpainted_targets[frame] = np.where(mask[..., None], inp,
@@ -177,11 +234,14 @@ def unveil(scene, state: SurfelState, masks, key_frames: Sequence[int],
                 if frame_masks is not None and mid in frame_masks:
                     mmask = np.asarray(frame_masks[mid], bool)
                 else:
-                    mmask = _host(_frame_condition(
-                        scene.train_cameras[mid], state, base, bg,
-                        duplicate_capacity)["mask"])
+                    with trace.span("unveil.condition"):
+                        mmask = _host(_frame_condition(
+                            scene.train_cameras[mid], state, base, bg,
+                            duplicate_capacity)["mask"])
                 mimg = np.asarray(images[mid])
-                minp = inpainter.inpaint(mimg, mmask, reference=last_inpaint)
+                with trace.span("unveil.inpaint"):
+                    minp = inpainter.inpaint(mimg, mmask,
+                                             reference=last_inpaint)
                 inpainted_targets[mid] = np.where(
                     mmask[..., None], minp, mimg).astype(np.float32)
                 new_frames.append(mid)
@@ -192,16 +252,10 @@ def unveil(scene, state: SurfelState, masks, key_frames: Sequence[int],
         # re-optimization over the accumulated candidate set, frames in
         # random order without replacement
         candidates += new_frames
-        stack: list[int] = []
-        for it in range(1, opt.iterations + 1):
-            if not stack:
-                stack = list(rng.permutation(candidates))
-            fid = int(stack.pop())
-            deltas, opt_state, loss = reoptimize_step(
-                base, deltas, opt_state, train_mask,
-                scene.train_cameras[fid].to(dev), targets_dev[fid], bg, it,
-                opt, sky_image=None if sky_dev is None else sky_dev[fid],
-                duplicate_capacity=duplicate_capacity)
+        deltas, opt_state, loss, _ = reoptimize_frames(
+            base, deltas, opt_state, train_mask, scene.train_cameras,
+            targets_dev, bg, candidates, 1, opt.iterations, opt, rng,
+            sky_images=sky_dev, duplicate_capacity=duplicate_capacity)
         if callback:
             callback(frame, float(loss), inpainted_targets[frame])
 

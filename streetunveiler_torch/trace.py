@@ -29,7 +29,8 @@ window, or any profiler a caller opens. There is no switch of its own.
   kernels; ``reset_launch_counts()`` zeroes them.
 
 Span names (indentation is nesting; the training loop's, the step's, the
-binning's, the rasterizer's, the sky's and the render CLI's view):
+binning's, the rasterizer's, the sky's, the render CLI's view and the
+unveil stage's):
 
     train.start             train_scene's start-up: targets, capacity probe
     train.iteration         one loop iteration: bin, step, schedule, capacity
@@ -53,6 +54,14 @@ binning's, the rasterizer's, the sky's and the render CLI's view):
                             scatter kernel (ops/rasterizer/scatter.py)
         sky.backward        the sky's subgraph
       train.update          Adam (surfels, sky), densification statistics
+    unveil.step             pipeline/reoptimize.reoptimize_step: one delta step
+      unveil.deltas         models/deltas.apply_deltas
+      unveil.loss           the stage-C loss after the render
+      unveil.deltas_bwd     apply_deltas' backward (hooks, as sky.backward)
+      unveil.adam           the deltas' Adam
+    unveil.condition        unveil(): a frame's removal mask and the
+                            inpaint-input renders
+    unveil.inpaint          unveil(): the inpainter
     view                    cli/render.render_view
       view.render           renderer.render (raster.* and bin.* inside)
       view.sky              render_sky + the composite
@@ -62,7 +71,9 @@ binning's, the rasterizer's, the sky's and the render CLI's view):
 Counters, in ``api.rasterize`` on the stream K1, K2, the gather and the
 scatter process: ``raster.slots`` (the stream's capacity) and
 ``raster.duplicates`` (min(demand, capacity)); the pad slots are
-slots − duplicates.
+slots − duplicates. In ``pipeline/reoptimize.reoptimize_step``, once a step:
+``unveil.trainable`` (the rows the train mask trains) and ``unveil.surfels``
+(the base's alive rows), both 0-d device tensors.
 """
 
 from __future__ import annotations
@@ -114,14 +125,19 @@ def backward_span(name: str, output) -> None:
     """While tracing, open the range ``name`` when the backward reaches
     ``output``'s node, and close it once every node of ``output``'s graph
     down to its leaves that this backward runs has (a part that leads only
-    to leaves the backward leaves out is not waited for). The hooks sit on
-    those nodes alone and go with the graph; a range a backward left open
-    (it raised) ends with them. Nothing when tracing is off or ``output``
-    has no node."""
-    root = getattr(output, "grad_fn", None)
-    if not _profiler._is_profiler_enabled or root is None:
+    to leaves the backward leaves out is not waited for). ``output`` may
+    be a list of tensors: the range then opens at the first of their nodes
+    the backward reaches and closes after the last node of their graphs.
+    The hooks sit on those nodes alone and go with the graph; a range a
+    backward left open (it raised) ends with them. Nothing when tracing is
+    off or no output has a node."""
+    outputs = output if isinstance(output, (list, tuple)) else [output]
+    roots = list(dict.fromkeys(
+        r for r in (getattr(o, "grad_fn", None) for o in outputs)
+        if r is not None))
+    if not _profiler._is_profiler_enabled or not roots:
         return
-    below, seen, stack = [], {root}, [root]
+    below, seen, stack = [], set(roots), list(roots)
     while stack:
         for node, _ in stack.pop().next_functions:
             # a leaf's AccumulateGrad is not a node of the range
@@ -132,11 +148,15 @@ def backward_span(name: str, output) -> None:
             stack.append(node)
     state = {"range": None, "left": 0}
 
-    def enter(grad_outputs):
-        if state["range"] is None:
-            state["left"] = 1 + sum(
-                map(torch._C._will_engine_execute_node, below))
-            state["range"] = torch.profiler.record_function(name).__enter__()
+    def enter(root):
+        def hook(grad_outputs):
+            if state["range"] is None:
+                state["left"] = 1 + sum(map(
+                    torch._C._will_engine_execute_node,
+                    [r for r in roots if r is not root] + below))
+                state["range"] = torch.profiler.record_function(
+                    name).__enter__()
+        return hook
 
     def leave(grad_inputs, grad_outputs):
         state["left"] -= 1
@@ -144,8 +164,9 @@ def backward_span(name: str, output) -> None:
             state["range"].__exit__(None, None, None)
             state["range"] = None
 
-    root.register_prehook(enter)
-    for node in (root, *below):
+    for root in roots:
+        root.register_prehook(enter(root))
+    for node in (*roots, *below):
         node.register_hook(leave)
 
 
