@@ -145,7 +145,15 @@ drives the two paths of the port on the 300k-surfel street scene at
   street at rec 24, bit for bit against its plain version, itself and
   ``index_add_`` under the deterministic mode, timed beside its byte
   bound, the plain version and ``index_add_`` (``record_scatter``, and
-  the kernels line's row).
+  the kernels line's row);
+* the binning's conic cull (phase group 23, after the record scatter):
+  the kernel ``csrc/cull_sm90.cuh`` against its plain version
+  (``tiles.cull_rects_plain``) on the
+  1M-surfel street at the benchmark's view sizes, 1920x1280 and 1920x1080:
+  the table, ``dup_start``, the ranked table and the whole stream bit for
+  bit; then both timed by CUDA-graph replays in turns at 1920x1280 beside
+  the byte and operation bound, and the binning whole with each
+  (``conic_cull``, and the kernels line's row).
 
 The late full-width checks (gated K1/K2, T1 and T2 of both designs) run
 on two late streams: the street state as built (``*_late_full_width``)
@@ -156,9 +164,9 @@ both the same in every run. On the 16-step trained state
 ``scaling`` error against its tolerance to a duplicate and a pixel, with
 a float64 reference of that pair (ROADMAP C.1).
 
-``python3 chip_smoke.py --only c1,paths,data,eval,e2e,multi,scatter`` runs
-the build, the street scene and those groups alone, or any of them (a
-quicker run while working on them).
+``python3 chip_smoke.py --only c1,paths,data,eval,e2e,multi,scatter,cull``
+runs the build, the street scene and those groups alone, or any of them
+(a quicker run while working on them).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last two lines are the kernels table and
@@ -193,6 +201,10 @@ K3_OPS_PER_SLOT = 10
 # kept (the pair VJP and the 14 sums): 82 + 4·nq per kept pair ungated
 K2_OPS_EVALUATED, K2_OPS_SCAN, K2_OPS_KEPT_CHANNEL, K2_OPS_VJP = 33, 20, 4, 62
 K1_OPS_GATED_KEPT = 8   # a gated chain's composite: T, w, α_g, m1_g, m2_g
+# the conic cull's test of one (surfel, rect position) pair, counted from
+# csrc/cull_sm90.cuh without its early exits: the tile's bounds 6, the disc
+# 11, ρ3d at 9 points 19 each, the 4 edge criticals 6 each, the interior 6
+CULL_OPS_PER_PAIR = 218
 TRAIN_ITER0 = 5000   # the schedule point of the full-width steps: SH
 #                      degree 3 active, densification statistics on
 TRAIN_STEPS = 20
@@ -995,7 +1007,7 @@ def train_phases(torch, state, cam, cap, bg, gt, gt_sem):
     ok = (finite and falls and not overflow and tracked > 0
           and all(launches[k] >= steps
                   for k in ("expand", "blend_fwd", "blend_bwd",
-                            "record_scatter")))
+                            "record_scatter", "cull")))
     emit("train_main_path", steps=steps, first_step_nq=12, iteration0=
          TRAIN_ITER0, losses=losses, loss_falls=falls, overflow=overflow,
          launches=launches, finite=finite, surfels_with_stats=tracked,
@@ -1617,7 +1629,7 @@ def ptxas_summary(log):
     from streetunveiler_torch.tools import bisect_bwd, bisect_fwd
     keep = {"K1<6,0>", "K1<9,0>", "K1<12,0>", "K1<6,3>", "K1<12,5>",
             "K2<6,0>", "K2<9,0>", "K2<12,0>", "K2<6,3>", "K2<12,5>", "K3",
-            "K3 sm90", "K3 sm90 no cull"}
+            "K3 sm90", "K3 sm90 no cull", "cull"}
     out, name, unit = {}, None, ""
     for line in log.splitlines():
         if line.startswith("== nvcc "):
@@ -1680,6 +1692,8 @@ def ptxas_summary(log):
                     f"<{probe.group(2)}>" if probe.group(2) else "")
             elif "expand_sm90_kernel" in line:
                 name = "K3 sm90" + ("" if "ILb1E" in line else " no cull")
+            elif "cull_sm90_kernel" in line:
+                name = "cull"
             else:
                 name = "K3" if "expand_kernel" in line else None
             if name and not name.startswith("T") and name not in keep:
@@ -2959,6 +2973,7 @@ def probe_redesign_phases(torch, ptxas):
 # and T2 rebuilt on K2's H100 design (csrc/blend_bwd_sm90.cuh).
 
 BINNING_REPS = 10
+PLAIN_CULL_PARTS = ("tile_rects", "conic_cull")
 
 
 def k3_device_time(torch, k3_args):
@@ -2979,7 +2994,9 @@ def k3_device_time(torch, k3_args):
 
 def binning_split(torch, state, cam, cap):
     """The step's binning stage (``bin_step``) and its parts, each alone
-    on the street's inputs: CUDA-event times of BINNING_REPS back-to-back
+    on the street's inputs (the plain rects and conic cull beside the cull
+    kernel that replaces them on the card): CUDA-event times of
+    BINNING_REPS back-to-back
     calls (as the step's stages) and device times from CUDA-graph replays.
     Returns the line's fields."""
     from streetunveiler_torch import renderer
@@ -3005,8 +3022,10 @@ def binning_split(torch, state, cam, cap):
                                  th)
         nt, cols = tiles.conic_cull(sur.cull, sur.center2d, rects, sur.valid,
                                     tw, th)
+        table = tiles.cull_rects_cuda(sur.cull, sur.center2d, sur.ext,
+                                      sur.valid, w, h, tw, th)
         order = tiles.depth_order(sur.depth, sur.valid)
-        tbl, dup_start = tiles.rank_table(rects, nt, cols, order)
+        tbl, dup_start = tiles.rank_table(table, order)
         k3_args = (tbl, dup_start, cap, tiles_x, n_tiles, True)
         tile_id, surf_id = tiles.expand_duplicates_cuda(*k3_args)
         capp = tile_id.numel()
@@ -3019,8 +3038,10 @@ def binning_split(torch, state, cam, cap):
                                             w, h, tw, th),
         conic_cull=lambda: tiles.conic_cull(sur.cull, sur.center2d, rects,
                                             sur.valid, tw, th),
+        cull_kernel=lambda: tiles.cull_rects_cuda(
+            sur.cull, sur.center2d, sur.ext, sur.valid, w, h, tw, th),
         depth_argsort=lambda: tiles.depth_order(sur.depth, sur.valid),
-        table_gather_cumsum=lambda: tiles.rank_table(rects, nt, cols, order),
+        table_gather_cumsum=lambda: tiles.rank_table(table, order),
         k3=lambda: tiles.expand_duplicates_cuda(*k3_args),
         tile_sort=lambda: tiles.sort_by_tile(tile_id, surf_id),
         searchsorted=lambda: tiles.csr_offsets(s_tile, n_tiles),
@@ -3036,8 +3057,11 @@ def binning_split(torch, state, cam, cap):
         whole_event = cuda_ms(torch, whole, BINNING_REPS)
         whole_device = graph_ms(torch, whole, replayed)
     return dict(parts_ms=event, parts_device_ms=device,
-                parts_sum_ms=sum(event.values()),
-                parts_device_sum_ms=sum(device.values()),
+                # the step's own parts: the kernel, not the plain cull
+                parts_sum_ms=sum(v for k, v in event.items()
+                                 if k not in PLAIN_CULL_PARTS),
+                parts_device_sum_ms=sum(v for k, v in device.items()
+                                        if k not in PLAIN_CULL_PARTS),
                 bin_step_ms=whole_event, bin_step_device_ms=whole_device,
                 duplicates=int(dup_start[-1]), capacity=cap,
                 k3_slots=capp)
@@ -3978,7 +4002,7 @@ UNVEIL_FLAGS = ["--cluster_threshold", "1.5", "--min_cluster_size", "10",
 UNVEIL_REOPT = 10         # delta steps per key frame pair on the CLI
 MESH_RES = 512
 PATH_KERNELS = ("expand", "blend_fwd", "blend_bwd", "blend_fwd_gated",
-                "blend_bwd_gated", "record_scatter")
+                "blend_bwd_gated", "record_scatter", "cull")
 
 
 def path_launches(trace):
@@ -5162,12 +5186,141 @@ def scatter_phase(torch, smi):
     return row
 
 
+CULL_SURFELS = 1_000_000
+# the benchmark's views of the street: 1920x1280 at f 1000 (the training
+# and render cells), 1920x1080 at f 1970 (the unveil cell: a partial last
+# tile row); the first is timed
+CULL_VIEWS = {"1920x1280": (1920, 1280, 1000.0),
+              "1920x1080": (1920, 1080, 1970.0)}
+
+
+@contextlib.contextmanager
+def plain_cull(tiles):
+    """``tiles.ranked_table`` with the plain version in the kernel's place,
+    on CUDA tensors too."""
+    kernel_fn = tiles.cull_rects_cuda
+    tiles.cull_rects_cuda = tiles.cull_rects_plain
+    try:
+        yield
+    finally:
+        tiles.cull_rects_cuda = kernel_fn
+
+
+def cull_phase(torch, smi):
+    """The binning's conic cull (kernel ``csrc/cull_sm90.cuh``, wrapper
+    ``tiles.cull_rects_cuda``) on the 1M-surfel street at each of
+    CULL_VIEWS: the kernel's table against its plain version's on the same
+    tensors (every column; w0 and w1 on the small rows, 0 on the others),
+    then ``ranked_table``'s dup_start and ranked table (every column K3
+    reads) and ``bin_surfels_stream``'s whole stream with the kernel and
+    with the plain version in its place, bit for bit. At 1920x1280: both
+    timed by CUDA-graph replays in turns (and by CUDA events around
+    back-to-back host calls), the stream's binning whole with each, and
+    the bound: the bytes read and written once (center2d, ext, valid, the
+    cull table; the [N, 7] table), and CULL_OPS_PER_PAIR operations for
+    each rect position the test runs on (a small row's positions below
+    rect_nt). Emits ``conic_cull`` and returns its kernels-line
+    figures."""
+    from streetunveiler_torch.ops.rasterizer import (RasterizeSettings,
+                                                     cuda_lib, kernel, tiles)
+    from streetunveiler_torch.ops.rasterizer.preprocess import \
+        preprocess_surfels
+    from streetunveiler_torch.tools.street import street_camera, \
+        street_state
+    n, tw, th = CULL_SURFELS, kernel.TILE_W, kernel.TILE_H
+    state = street_state(n=n, device="cuda")
+    checks, views, timed = {}, {}, None
+    for label, (w, h, f) in CULL_VIEWS.items():
+        cam = street_camera(device="cuda", width=w, height=h, focal=f)
+        with torch.no_grad():
+            sur = preprocess_surfels(
+                state.params.xyz, state.get_scaling(), state.get_rotation(),
+                state.get_opacity()[:, 0], torch.zeros((n, 3), device="cuda"),
+                cam.w2c, cam.K, RasterizeSettings(width=w, height=h))
+        args = (sur.cull, sur.center2d, sur.ext, sur.valid, w, h, tw, th)
+        bin_args = (sur.center2d, sur.ext, sur.depth, sur.valid, w, h, tw,
+                    th)
+        got = tiles.cull_rects_cuda(*args)
+        want = tiles.cull_rects_plain(*args)
+        tbl, start = tiles.ranked_table(*bin_args, cull=sur.cull)
+        cap = (-(-int(start[-1]) // tiles.S_CHUNK) + 16) * tiles.S_CHUNK
+        b = tiles.bin_surfels_stream(*bin_args, cap, cull=sur.cull)
+        with plain_cull(tiles):
+            want_tbl, want_start = tiles.ranked_table(*bin_args,
+                                                      cull=sur.cull)
+            want_b = tiles.bin_surfels_stream(*bin_args, cap, cull=sur.cull)
+        small, rsmall = want[:, 4] > 0, want_tbl[:, 5] > 0
+        checks[label] = dict(
+            table_bit_equal=(torch.equal(got[:, :5], want[:, :5])
+                             and torch.equal(got[small, 5:],
+                                             want[small, 5:])),
+            words_zero_off_small=not bool(got[~small, 5:].any()),
+            dup_start_bit_equal=torch.equal(start, want_start),
+            ranked_bit_equal=(torch.equal(tbl[:, :6], want_tbl[:, :6])
+                              and torch.equal(tbl[rsmall, 6:],
+                                              want_tbl[rsmall, 6:])),
+            stream_bit_equal=all(
+                torch.equal(getattr(b, k), getattr(want_b, k))
+                for k in ("sorted_surfel", "tile_offsets", "overflow",
+                          "demand", "tile_order")))
+        rect_nt = tiles.tile_rects(sur.center2d, sur.ext, sur.valid, w, h,
+                                   tw, th)[3]
+        pairs = int(torch.clamp(rect_nt[small], min=0).sum())
+        views[label] = dict(valid=int(sur.valid.sum()),
+                            small=int(small.sum()), tested_pairs=pairs,
+                            passing_pairs=int(got[small, 3].sum()),
+                            duplicates=int(start[-1]), capacity=cap)
+        if timed is None:
+            timed = (args, bin_args, cap, sur.cull, pairs)
+    args, bin_args, cap, cull, pairs = timed
+    replayed = collections.Counter()
+    with torch.no_grad():
+        turns = graph_rounds(torch, dict(
+            kernel=lambda: tiles.cull_rects_cuda(*args),
+            plain=lambda: tiles.cull_rects_plain(*args)), replayed, rounds=4,
+            calls=10)
+        event = dict(
+            kernel=cuda_ms(torch, lambda: tiles.cull_rects_cuda(*args), 50),
+            plain=cuda_ms(torch, lambda: tiles.cull_rects_plain(*args), 10))
+        stream = lambda: tiles.bin_surfels_stream(*bin_args, cap, cull=cull)
+        bin_kernel = graph_ms(torch, stream, replayed)
+        with plain_cull(tiles):
+            bin_plain = graph_ms(torch, stream, replayed)
+    nbytes = n * (4 * (11 + 2 + 2) + 1 + 4 * 7)
+    ops = CULL_OPS_PER_PAIR * pairs
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    ms = statistics.median(turns["kernel"])
+    row = dict(ms=ms, plain_ms=statistics.median(turns["plain"]),
+               event_ms=event["kernel"], plain_event_ms=event["plain"],
+               bound_ms=bound_ms,
+               bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / F32_OPS_PER_S else "operations"),
+               share_of_bound=bound_ms / ms, max_abs_err=0.0,
+               library_ms=None)
+    emit("conic_cull", card=smi, surfels=n, checks=checks, views=views,
+         kernel_turns=turns_summary(turns["kernel"]),
+         plain_turns=turns_summary(turns["plain"]),
+         bin_stream_device_ms=dict(kernel=bin_kernel, plain=bin_plain),
+         bound_bytes=nbytes, bound_ops=ops,
+         ops_every_position=CULL_OPS_PER_PAIR * tiles.CULL_KMAX * n,
+         ptxas=ptxas_numbers(ptxas_summary(cuda_lib.build_log()).get(
+             "cull")), replayed_launches=replayed["cull"], **row,
+         note="ms, plain_ms: CUDA-graph replays in turns at 1920x1280; "
+              "event_ms: CUDA events around back-to-back host calls; "
+              "bin_stream_device_ms: bin_surfels_stream with the kernel and "
+              "with the plain version (graph replays)")
+    if not all(all(c.values()) for c in checks.values()):
+        raise AssertionError(f"the conic cull failed a check: {checks}")
+    return row
+
+
 def partial_run(torch, only, state, cam, kind, smi):
     """``--only`` groups alone, after the build and the street scene:
     ``c1`` (the 16-step deterministically trained state and its C.1
     split), ``paths`` (phase group 17), ``data`` (phase group 18),
     ``eval`` (19), ``e2e`` (20), ``multi`` (21) and ``scatter`` (the record
-    scatter at the benchmark's size, ``scatter_phase``). A quicker run
+    scatter at the benchmark's size, ``scatter_phase``) and ``cull`` (the
+    conic cull kernel, ``cull_phase``). A quicker run
     for working on those phases; the full run is the one without
     arguments."""
     from streetunveiler_torch import renderer
@@ -5175,12 +5328,14 @@ def partial_run(torch, only, state, cam, kind, smi):
     from streetunveiler_torch.models.sky import init_sky
     from streetunveiler_torch.ops.rasterizer import kernel
     unknown = set(only) - {"c1", "paths", "data", "eval", "e2e", "multi",
-                           "scatter"}
+                           "scatter", "cull"}
     if unknown:
         raise SystemExit(f"--only: unknown groups {sorted(unknown)}")
     cap = renderer.measure_duplicate_capacity([cam], state, device="cuda")
     if "scatter" in only:
         scatter_phase(torch, smi)
+    if "cull" in only:
+        cull_phase(torch, smi)
     if "eval" in only:
         eval_phases(torch, smi)
     if "e2e" in only:
@@ -5212,7 +5367,7 @@ def main(argv=None):
     only = set(argv[1].split(",")) if argv[:1] == ["--only"] else set()
     if argv and not only:
         raise SystemExit("usage: chip_smoke.py "
-                         "[--only c1,paths,data,eval,e2e,multi,scatter]")
+                         "[--only c1,paths,data,eval,e2e,multi,scatter,cull]")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5457,6 +5612,8 @@ def main(argv=None):
 
     # ---- 22. the record scatter at the benchmark's size (1M surfels)
     scatter_row = scatter_phase(torch, smi)
+    # ---- 23. the conic cull at the benchmark's size (1M surfels)
+    cull_row = cull_phase(torch, smi)
 
     # ---- 7. the training slice at full width, the late phase, then the
     # training CLI without and with the late phase
@@ -5636,6 +5793,11 @@ def main(argv=None):
              replaces="streetunveiler_tpu/ops/rasterizer/api.py:99",
              launches=train_launches["record_scatter"],
              launches_by_path=by_path("record_scatter"), **scatter_row),
+        # the conic cull: phase group 23's figures, 1M surfels at 1920x1280
+        dict(name="conic cull", route="cuda", source=csrc + "cull_sm90.cuh",
+             replaces="streetunveiler_tpu/ops/rasterizer/tiles.py:102",
+             launches=train_launches["cull"],
+             launches_by_path=by_path("cull"), **cull_row),
     ]
     # the tools run on no main path: launches 0 there, their own count in
     # tool_launches; ms is T1/T2 full on the photometric stream, T3's

@@ -208,6 +208,11 @@ def load_library() -> ctypes.CDLL:
             lib.su_record_scatter.argtypes = [vp, i32, i32, vp, vp, i32, vp,
                                               vp, vp, i32, vp]
             lib.su_record_scatter.restype = i32
+            # the conic cull: center2d, ext, valid, cull, n, width, height,
+            # tile_w, tile_h, max_tiles, table
+            lib.su_cull.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
+                                    i32, vp, i32, vp]
+            lib.su_cull.restype = i32
             lib.su_error_string.argtypes = [i32]
             lib.su_error_string.restype = ctypes.c_char_p
             _lib = lib

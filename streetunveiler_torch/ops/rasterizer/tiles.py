@@ -5,7 +5,9 @@ stream with per-tile CSR offsets (counterpart of
 1. Per-surfel tile rectangles; for surfels spanning at most CULL_KMAX
    tiles, the exact conic tile test drops the rectangle's tiles the
    contribution region misses before expansion, and the passing tiles'
-   rect positions are packed as 4-bit nibbles into two words.
+   rect positions are packed as 4-bit nibbles into two words. On the card
+   one kernel (``csrc/cull_sm90.cuh``) writes the per-surfel table; on the
+   CPU its plain version ``cull_rects_plain``.
 2. A stable depth argsort, one gather of the per-surfel table into depth
    rank, a cumsum of the per-surfel tile counts (``dup_start``).
 3. The duplicate expansion — kernel K3 (``csrc/expand_sm90.cuh``, blocks
@@ -252,11 +254,18 @@ def conic_cull(cull, center2d, rects, valid, tile_w: int, tile_h: int,
     exact_nt = passk.sum(dim=1).to(i32)
     nt = torch.where(small,
                      torch.clamp(exact_nt, max=max_tiles_per_surfel), nt)
-    # compact list: passing tiles first, rect order preserved
+    w0, w1 = pack_positions(passk)
+    return nt, [small[:, None].to(i32), w0[:, None], w1[:, None]]
+
+
+def pack_positions(passk):
+    """The rect positions of passk [N, CULL_KMAX] bool as a compact list,
+    the passing ones first and each group in rect order (a stable sort),
+    packed as nibbles: (w0, w1) [N] int32, positions 0-7 and 8-15."""
+    ks = torch.arange(CULL_KMAX, dtype=torch.int32, device=passk.device)
     keys = torch.where(passk, ks, CULL_KMAX + ks)
     pos = torch.sort(keys, dim=1, stable=True).values % CULL_KMAX
-    return nt, [small[:, None].to(i32), _pack_nibbles(pos[:, :8])[:, None],
-                _pack_nibbles(pos[:, 8:])[:, None]]
+    return _pack_nibbles(pos[:, :8]), _pack_nibbles(pos[:, 8:])
 
 
 def depth_order(depth, valid):
@@ -266,20 +275,74 @@ def depth_order(depth, valid):
     return torch.argsort(key, stable=True).to(torch.int32)
 
 
-def rank_table(rects, nt, cull_cols, order):
-    """One gather of the per-surfel table into depth rank and the cumsum of
-    its tile counts: (tbl, dup_start) as ``ranked_table`` returns them."""
+def surfel_table(rects, nt, cull_cols):
+    """The per-surfel table [N, 4(+3)] int32, rows (x0, y0, max(nx, 1),
+    nt[, small, w0, w1]), from ``tile_rects`` and ``conic_cull``."""
     x0, y0, nx = rects[:3]
+    return torch.cat([x0[:, None], y0[:, None],
+                      torch.clamp(nx, min=1)[:, None], nt[:, None]]
+                     + cull_cols, dim=1)
+
+
+def cull_rects_plain(cull, center2d, ext, valid, width: int, height: int,
+                     tile_w: int, tile_h: int,
+                     max_tiles_per_surfel: int = 256):
+    """Plain version of the conic cull kernel: ``tile_rects`` +
+    ``conic_cull`` + ``surfel_table``, the per-surfel table [N, 7]."""
+    rects = tile_rects(center2d, ext, valid, width, height, tile_w, tile_h,
+                       max_tiles_per_surfel)
+    nt, cull_cols = conic_cull(cull, center2d, rects, valid, tile_w, tile_h,
+                               max_tiles_per_surfel)
+    return surfel_table(rects, nt, cull_cols)
+
+
+def cull_rects_cuda(cull, center2d, ext, valid, width: int, height: int,
+                    tile_w: int, tile_h: int, max_tiles_per_surfel: int = 256):
+    """Launch the conic cull kernel (``csrc/cull_sm90.cuh``) on the current
+    stream: ``cull_rects_plain``'s table [N, 7] int32, bit for bit but for
+    w0 and w1 on the rows that are not small, which are 0 (K3 reads them
+    only on small rows). cull [N, 11], center2d and ext [N, 2] float32,
+    valid [N] bool, all contiguous on one CUDA device."""
+    n = center2d.shape[0]
+    f32 = torch.float32
+    if (cull.dtype, center2d.dtype, ext.dtype, valid.dtype) != (
+            f32, f32, f32, torch.bool):
+        raise TypeError("cull, center2d and ext must be float32 and valid "
+                        "bool")
+    if (cull.shape != (n, 11) or center2d.shape != (n, 2)
+            or ext.shape != (n, 2) or valid.shape != (n,) or n < 1):
+        raise ValueError(f"bad shapes cull {tuple(cull.shape)}, center2d "
+                         f"{tuple(center2d.shape)}, ext {tuple(ext.shape)}, "
+                         f"valid {tuple(valid.shape)}")
+    if not all(t.is_contiguous() for t in (cull, center2d, ext, valid)):
+        raise ValueError("cull, center2d, ext and valid must be contiguous")
+    dev = center2d.device
+    if dev.type != "cuda" or any(t.device != dev for t in (cull, ext, valid)):
+        raise ValueError("cull_rects_cuda needs its inputs on one CUDA "
+                         "device")
+    lib = cuda_lib.load_library()
+    table = torch.empty((n, 7), dtype=torch.int32, device=dev)
+    rc = lib.su_cull(center2d.data_ptr(), ext.data_ptr(), valid.data_ptr(),
+                     cull.data_ptr(), n, width, height, tile_w, tile_h,
+                     max_tiles_per_surfel, table.data_ptr(),
+                     dev.index if dev.index is not None
+                     else torch.cuda.current_device(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(rc, "cull launch")
+    trace.launch_counts["cull"] += 1
+    return table
+
+
+def rank_table(table, order):
+    """One gather of the per-surfel table [N, 4(+3)] (``surfel_table``)
+    into depth rank and the cumsum of its tile counts: (tbl, dup_start) as
+    ``ranked_table`` returns them."""
     i32 = torch.int32
-    tbl_orig = torch.cat([x0[:, None], y0[:, None],
-                          torch.clamp(nx, min=1)[:, None], nt[:, None]]
-                         + cull_cols, dim=1)
-    tbl_s = tbl_orig[order.long()]
+    tbl_s = table[order.long()]
     dup_start = torch.cat([torch.zeros(1, dtype=i32, device=order.device),
                            torch.cumsum(tbl_s[:, 3], 0).to(i32)])
-    tbl = torch.cat([tbl_s[:, 0:3], dup_start[:-1, None], order[:, None]]
-                    + ([tbl_s[:, 4:7]] if cull_cols else []),
-                    dim=1).contiguous()
+    tbl = torch.cat([tbl_s[:, 0:3], dup_start[:-1, None], order[:, None],
+                     tbl_s[:, 4:]], dim=1).contiguous()
     return tbl, dup_start
 
 
@@ -289,17 +352,22 @@ def ranked_table(center2d, ext, depth, valid, width: int, height: int,
     """The depth-ranked per-surfel table the duplicate expansion reads:
     tbl [N, 5(+3)] int32 rows (x0, y0, nx, dup_start, surfel id[, small,
     w0, w1]) and dup_start [N+1] int32, the cumsum of the per-surfel tile
-    counts (dup_start[N] is the uncapped duplicate total). The stages
-    ``tile_rects``, ``conic_cull``, ``depth_order``, ``rank_table``."""
+    counts (dup_start[N] is the uncapped duplicate total). The stages:
+    the per-surfel table (with ``cull`` the conic cull kernel on a CUDA
+    tensor, ``cull_rects_plain`` on a CPU tensor; without, ``tile_rects``),
+    then ``depth_order`` and ``rank_table``."""
+    args = (center2d, ext, valid, width, height, tile_w, tile_h,
+            max_tiles_per_surfel)
     with trace.span("bin.cull"):
-        rects = tile_rects(center2d, ext, valid, width, height, tile_w,
-                           tile_h, max_tiles_per_surfel)
-        nt, cull_cols = rects[4], []
-        if cull is not None:
-            nt, cull_cols = conic_cull(cull, center2d, rects, valid, tile_w,
-                                       tile_h, max_tiles_per_surfel)
+        if cull is None:
+            rects = tile_rects(*args)
+            table = surfel_table(rects, rects[4], [])
+        elif center2d.device.type == "cpu":
+            table = cull_rects_plain(cull, *args)
+        else:
+            table = cull_rects_cuda(cull, *args)
     with trace.span("bin.depth_sort"):
-        return rank_table(rects, nt, cull_cols, depth_order(depth, valid))
+        return rank_table(table, depth_order(depth, valid))
 
 
 def tile_order(tile_offsets):

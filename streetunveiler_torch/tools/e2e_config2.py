@@ -95,9 +95,10 @@ def make_eval_weights(out_dir: str, seed: int = 0):
     return lpips_npz, inc_npz
 
 
-# the launch counters of K3, K1 and K2 (ungated and gated)
+# the launch counters of K3, K1 and K2 (ungated and gated), the record
+# scatter and the conic cull
 PATH_KERNELS = ("expand", "blend_fwd", "blend_bwd", "blend_fwd_gated",
-                "blend_bwd_gated", "record_scatter")
+                "blend_bwd_gated", "record_scatter", "cull")
 
 
 def _kernel_launches():

@@ -36,7 +36,9 @@ unveil stage's):
     train.iteration         one loop iteration: bin, step, schedule, capacity
       train.bin             train/step.bin_step
         bin.preprocess      api.bin_for_camera's preprocess
-        bin.cull            tiles.tile_rects + tiles.conic_cull
+        bin.cull            the per-surfel table: the conic cull kernel
+                            (tiles.cull_rects_cuda) on the card, its plain
+                            version tiles.cull_rects_plain on the CPU
         bin.depth_sort      tiles.depth_order + tiles.rank_table
         bin.expand          K3, the duplicate expansion
         bin.tile_sort       tiles.sort_by_tile + csr_offsets + tile_order
@@ -89,7 +91,7 @@ _seen_on = False        # what the last look at the profiler found
 
 launch_counts = {"blend_fwd": 0, "blend_bwd": 0, "expand": 0,
                  "blend_fwd_gated": 0, "blend_bwd_gated": 0,
-                 "record_scatter": 0,
+                 "record_scatter": 0, "cull": 0,
                  # the measurement tools (streetunveiler_torch/tools/)
                  "bisect_fwd": 0, "bisect_bwd": 0, "micro_reduce": 0,
                  "micro_prefix": 0, "micro_floor_visit": 0,
